@@ -1,0 +1,23 @@
+"""Architecture registry of the port: ``get_config(arch_id)``.
+
+Each module defines ``CONFIG`` with the published numbers.  The port carries
+the configs whose block kinds it runs; the others arrive with their slices.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import List
+
+from ..models.config import ModelConfig
+
+ARCH_IDS: List[str] = ["llama3_2_1b"]
+
+# CLI ids use dashes / dots; module names use underscores.
+ALIASES = {"llama3.2-1b": "llama3_2_1b"}
+
+
+def get_config(arch: str) -> ModelConfig:
+    mod_name = ALIASES.get(arch, arch.replace("-", "_").replace(".", "_"))
+    if mod_name not in ARCH_IDS:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(ALIASES)}")
+    return importlib.import_module(f"{__name__}.{mod_name}").CONFIG

@@ -1,0 +1,66 @@
+"""Dispatch between the CUDA kernels and their plain PyTorch version.
+
+A CPU tensor goes to the plain version (``ref.attention_ref``); a CUDA
+tensor goes to the kernel, which launches or raises.  Nothing here catches a
+kernel's failure and falls back.
+
+``attention`` is the model-facing entry with the signature and
+``(B,S,N,hd)`` layout of ``layers.attention``: a causal call (prefill,
+train) runs ``flash_attention``; a one-token decode call against the cache
+runs ``flash_decode``.  The head-major views it passes are transposes, not
+copies.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+from . import decode_attention, flash_attention as _fa, ref
+
+
+def _on_cpu(t) -> bool:
+    return t.device.type == "cpu"
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
+                    q_offset=0, kv_len=None):
+    """q: (B,Hq,Sq,hd)  k,v: (B,Hkv,Skv,hd) -> (B,Hq,Sq,hd)."""
+    if _on_cpu(q):
+        return ref.attention_ref(q, k, v, causal=causal, window=window,
+                                 softcap=softcap, q_offset=q_offset,
+                                 kv_len=kv_len)
+    return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                               softcap=softcap, q_offset=q_offset,
+                               kv_len=kv_len)
+
+
+def flash_decode(q, k, v, kv_len: int, *, softcap=0.0):
+    """q: (B,Hq,1,hd)  k,v: (B,Hkv,T,hd) -> (B,Hq,1,hd)."""
+    if _on_cpu(q):
+        return ref.attention_ref(q, k, v, causal=False, softcap=softcap,
+                                 kv_len=kv_len)
+    return decode_attention.flash_decode(q, k, v, kv_len, softcap=softcap)
+
+
+def attention(q, k, v, *, causal: bool = True, window: int = 0,
+              cap: float = 0.0, q_offset: int = 0,
+              kv_len: Optional[int] = None):
+    """``layers.attention``'s contract, q:(B,S,Nq,hd) k,v:(B,T,Nkv,hd),
+    computed by the kernels.  As in the JAX package, ``window`` applies only
+    with ``causal``."""
+    qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if not causal and q.shape[1] == 1 and kv_len is not None:
+        o = flash_decode(qh, kh, vh, kv_len, softcap=cap)
+    else:
+        o = flash_attention(qh, kh, vh, causal=causal, window=window,
+                            softcap=cap, q_offset=q_offset, kv_len=kv_len)
+    return o.transpose(1, 2)
+
+
+def launch_counts() -> Dict[str, int]:
+    return {_fa.NAME: _fa.launches,
+            decode_attention.NAME: decode_attention.launches}
+
+
+def reset_launch_counts() -> None:
+    _fa.launches = 0
+    decode_attention.launches = 0

@@ -1,0 +1,6 @@
+"""Model stack of the port: config, layers, blocks and the decoder LM."""
+from .config import ModelConfig, smoke
+from .lm import LM, cache_specs, init_cache, init_model, model_specs
+
+__all__ = ["LM", "ModelConfig", "cache_specs", "init_cache", "init_model",
+           "model_specs", "smoke"]

@@ -1,0 +1,161 @@
+"""Shared layers: the port of ``repro.models.layers`` for the dense decoder.
+
+Conventions:
+  * Parameters are declared once as ``PSpec`` trees (shape + init), from
+    which ``init_tensor`` draws real tensors with an explicit
+    ``torch.Generator`` (the same per-leaf distributions as the JAX package;
+    the numbers differ, so tests carry the JAX weights over instead).
+  * The JAX package's sharding annotations (``constrain``) are identities on
+    one device and have no counterpart here.
+  * ``attention`` is the plain, exact attention in the model's
+    ``(B, S, N, hd)`` layout.  The kernels in ``repro_torch.kernels`` compute
+    the same function on the card; the JAX package's chunked variant, which
+    only bounds memory above 8192 tokens, is left to the kernels.
+"""
+from __future__ import annotations
+
+import functools
+import math
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+# ---------------------------------------------------------------------------
+# Param specs
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class PSpec:
+    shape: Tuple[int, ...]
+    init: str = "normal"            # normal | zeros | ones
+    scale: Optional[float] = None   # stddev; None => 1/sqrt(fan_in = shape[-2])
+
+    def stddev(self) -> float:
+        if self.scale is not None:
+            return self.scale
+        fan_in = self.shape[-2] if len(self.shape) >= 2 else self.shape[-1]
+        return 1.0 / math.sqrt(max(1, fan_in))
+
+
+def init_tensor(spec: PSpec, generator: torch.Generator, *, dtype,
+                device) -> torch.Tensor:
+    """One leaf: zeros, ones, or normal·stddev drawn from ``generator``
+    (which must live on ``device``)."""
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=dtype, device=device)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=dtype, device=device)
+    x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    return (x * spec.stddev()).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms / activations
+# ---------------------------------------------------------------------------
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    # Variance in fp32; the x path stays in its own dtype (as in JAX).
+    var = x.float().square().mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    return x * inv * (1.0 + weight.to(x.dtype))
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    return (cap * torch.tanh(x / cap)) if cap > 0 else x
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+def rope_freqs(hd: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, hd, 2, dtype=np.float64) / hd))
+
+
+@functools.lru_cache(maxsize=32)
+def _rope_freqs_on(hd: int, theta: float, device: torch.device):
+    # Built once per (hd, theta, device): a host-to-device copy on every
+    # call would synchronize the stream twice per layer per decode step.
+    return torch.tensor(rope_freqs(hd, theta), dtype=torch.float32,
+                        device=device)
+
+
+def rope_cos_sin(positions: torch.Tensor, hd: int, theta: float):
+    """(cos, sin) of the rotary angles, each (..., S, 1, hd/2) fp32."""
+    freqs = _rope_freqs_on(hd, float(theta), positions.device)
+    ang = positions[..., None].float() * freqs               # (..., S, hd/2)
+    return torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+
+
+def rotate(x: torch.Tensor, cos: torch.Tensor,
+           sin: torch.Tensor) -> torch.Tensor:
+    """Rotate-half RoPE of x: (..., S, N, hd) by ``rope_cos_sin`` tables."""
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, N, hd); positions: broadcastable to (..., S)."""
+    return rotate(x, *rope_cos_sin(positions, x.shape[-1], theta))
+
+
+def text_positions(batch: int, seq: int, offset: int = 0,
+                   device=None) -> torch.Tensor:
+    pos = torch.arange(seq, dtype=torch.int32, device=device) + offset
+    return pos[None, :].expand(batch, seq)
+
+
+# ---------------------------------------------------------------------------
+# Attention (plain, exact)
+# ---------------------------------------------------------------------------
+def _mask_bias(q_pos, k_pos, window: int) -> torch.Tensor:
+    """Additive causal (+ optional sliding-window) bias, fp32."""
+    keep = k_pos[None, :] <= q_pos[:, None]
+    if window > 0:
+        keep &= (q_pos[:, None] - k_pos[None, :]) < window
+    zero = torch.zeros((), dtype=torch.float32, device=keep.device)
+    return torch.where(keep, zero, torch.full_like(zero, -1e30))
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int = 0, cap: float = 0.0,
+              q_offset: int = 0, kv_len: Optional[int] = None,
+              ) -> torch.Tensor:
+    """Exact attention. q:(B,S,Nq,hd) k,v:(B,T,Nkv,hd) -> (B,S,Nq,hd).
+
+    GQA by head grouping; ``window`` applies with ``causal`` only (as in the
+    JAX package); ``q_offset`` is the absolute position of q[0]; ``kv_len``
+    masks keys at or past it (decode against a preallocated cache).
+    """
+    B, S, Nq, hd = q.shape
+    T, Nkv = k.shape[1], k.shape[2]
+    G = Nq // Nkv
+    qg = (q * (1.0 / math.sqrt(hd))).reshape(B, S, Nkv, G, hd)
+    s = torch.einsum("bsngh,btnh->bngst", qg.float(), k.float())
+    s = softcap(s, cap)
+    q_pos = torch.arange(S, device=q.device) + q_offset
+    k_pos = torch.arange(T, device=q.device)
+    if causal:
+        s = s + _mask_bias(q_pos, k_pos, window)
+    if kv_len is not None:
+        s = s.masked_fill(~(k_pos < kv_len), -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bngst,btnh->bsngh", p.to(v.dtype), v)
+    return o.reshape(B, S, Nq, hd)
+
+
+# ---------------------------------------------------------------------------
+# Projections
+# ---------------------------------------------------------------------------
+def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x: (..., d_in) @ w: (d_in, d_out)."""
+    return torch.matmul(x, w)
+
+
+def swiglu(x, w_gate, w_up, w_down):
+    return dense(F.silu(dense(x, w_gate)) * dense(x, w_up), w_down)
