@@ -10,10 +10,10 @@ from typing import List
 
 from ..models.config import ModelConfig
 
-ARCH_IDS: List[str] = ["llama3_2_1b"]
+ARCH_IDS: List[str] = ["llama3_2_1b", "xlstm_125m"]
 
 # CLI ids use dashes / dots; module names use underscores.
-ALIASES = {"llama3.2-1b": "llama3_2_1b"}
+ALIASES = {"llama3.2-1b": "llama3_2_1b", "xlstm-125m": "xlstm_125m"}
 
 
 def get_config(arch: str) -> ModelConfig:

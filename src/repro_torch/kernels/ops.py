@@ -1,8 +1,8 @@
-"""Dispatch between the CUDA kernels and their plain PyTorch version.
+"""Dispatch between the CUDA kernels and their plain PyTorch versions.
 
-A CPU tensor goes to the plain version (``ref.attention_ref``); a CUDA
-tensor goes to the kernel, which launches or raises.  Nothing here catches a
-kernel's failure and falls back.
+A CPU tensor goes to the plain version (``ref.attention_ref``,
+``ref.mlstm_ref``); a CUDA tensor goes to the kernel, which launches or
+raises.  Nothing here catches a kernel's failure and falls back.
 
 ``attention`` is the model-facing entry with the signature and
 ``(B,S,N,hd)`` layout of ``layers.attention``: a causal call (prefill,
@@ -14,7 +14,9 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
-from . import decode_attention, flash_attention as _fa, ref
+import torch
+
+from . import decode_attention, flash_attention as _fa, mlstm_scan, ref
 
 
 def _on_cpu(t) -> bool:
@@ -56,11 +58,30 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
     return o.transpose(1, 2)
 
 
+def mlstm(q, k, v, i_gate, f_gate, c0, *, chunk=mlstm_scan.DEFAULT_CHUNK,
+          out=None):
+    """The TPU kernel ``mlstm_scan``'s contract: q,k,v (B,S,H,hd), i,f
+    (B,S,H) in (0,1), c0 (B,H,hd,hd) fp32 -> (y (B,S,H,hd) in q's dtype,
+    c_last fp32).  ``out``, when given, receives c_last (it may be c0
+    itself) and is returned."""
+    if _on_cpu(q):
+        B, _, H, hd = q.shape
+        n0 = torch.zeros((B, H, hd), dtype=torch.float32, device=q.device)
+        y, c_last, _ = ref.mlstm_ref(q, k, v, i_gate, f_gate, c0, n0)
+        if out is not None:
+            c_last = out.copy_(c_last)
+        return y.to(q.dtype), c_last
+    return mlstm_scan.mlstm_scan(q, k, v, i_gate, f_gate, c0, chunk=chunk,
+                                 out=out)
+
+
+_KERNELS = (_fa, decode_attention, mlstm_scan)
+
+
 def launch_counts() -> Dict[str, int]:
-    return {_fa.NAME: _fa.launches,
-            decode_attention.NAME: decode_attention.launches}
+    return {m.NAME: m.launches for m in _KERNELS}
 
 
 def reset_launch_counts() -> None:
-    _fa.launches = 0
-    decode_attention.launches = 0
+    for m in _KERNELS:
+        m.launches = 0

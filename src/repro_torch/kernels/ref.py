@@ -1,8 +1,9 @@
-"""Plain PyTorch oracles for the port's kernels (materialized masks).
+"""Plain PyTorch oracles for the port's kernels (materialized masks,
+sequential recurrences).
 
 ``attention_ref`` is the plain version that both attention kernels are held
-against: on the CPU the kernel wrappers in ``ops`` use it, and
-``chip_smoke.py`` compares each CUDA kernel with it on the card.
+against, ``mlstm_ref`` that of ``mlstm_scan``: on the CPU ``ops`` uses them,
+and ``chip_smoke.py`` compares each CUDA kernel with them on the card.
 """
 from __future__ import annotations
 
@@ -34,3 +35,25 @@ def attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
     s = s.masked_fill(~keep, float("-inf"))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, vv).to(q.dtype)
+
+
+def mlstm_ref(q, k, v, i_gate, f_gate, c0, n0):
+    """Sequential mLSTM (gated linear attention form used by the model).
+
+    q,k,v: (B,S,H,hd)  i,f: (B,S,H) in (0,1)  c0: (B,H,hd,hd)  n0: (B,H,hd)
+    y_t = q_t · C_t  with  C_t = f_t C_{t-1} + i_t k_t v_tᵀ  (all fp32).
+    Returns (y (B,S,H,hd) fp32, c_last, n_last).
+    """
+    hd = q.shape[-1]
+    scale = 1.0 / math.sqrt(hd)
+    q, k, v, i_gate, f_gate = (t.float() for t in (q, k, v, i_gate, f_gate))
+    C, n = c0.float(), n0.float()
+    ys = []
+    for t in range(q.shape[1]):
+        q_t, k_t, v_t = q[:, t], k[:, t], v[:, t]               # (B,H,hd)
+        i_t, f_t = i_gate[:, t], f_gate[:, t]                   # (B,H)
+        C = f_t[..., None, None] * C + \
+            i_t[..., None, None] * torch.einsum("bhd,bhe->bhde", k_t, v_t)
+        n = f_t[..., None] * n + i_t[..., None] * k_t
+        ys.append(torch.einsum("bhd,bhde->bhe", q_t * scale, C))
+    return torch.stack(ys, dim=1), C, n

@@ -1,8 +1,9 @@
-"""Profile one served wave of llama3.2-1b on the card with torch.profiler.
+"""Profile one served wave on the card with torch.profiler.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile [--out DIR]
+    PYTHONPATH=src python -m repro_torch.launch.profile [--arch A] [--out DIR]
 
-(``DIR`` defaults to ``build/profile``.)
+(``A`` defaults to ``llama3.2-1b``, e.g. ``xlstm-125m``; ``DIR`` to
+``build/profile``.)
 
 Serves the same wave as chip_smoke.py (4 requests, 256-token prompts, 32
 new tokens, bf16, random weights from seed 0), then profiles a second wave

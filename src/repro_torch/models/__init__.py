@@ -1,6 +1,7 @@
 """Model stack of the port: config, layers, blocks and the decoder LM."""
 from .config import ModelConfig, smoke
-from .lm import LM, cache_specs, init_cache, init_model, model_specs
+from .lm import (LM, cache_specs, init_cache, init_model, layer_cache,
+                 model_specs)
 
 __all__ = ["LM", "ModelConfig", "cache_specs", "init_cache", "init_model",
-           "model_specs", "smoke"]
+           "layer_cache", "model_specs", "smoke"]

@@ -1,5 +1,5 @@
-"""Decoder blocks: the port of ``repro.models.blocks`` for the ``attn`` kind
-with a dense FFN.
+"""Decoder blocks: the port of ``repro.models.blocks`` for the ``attn``
+kind with a dense FFN, and the xLSTM kinds ``mlstm`` and ``slstm``.
 
 Every kind implements
   specs(cfg)                    -> {name: PSpec} for one layer
@@ -7,30 +7,38 @@ Every kind implements
 with ``ctx`` carrying the mode ("train" | "prefill" | "decode"), the rope
 tables, the window and the layer's cache.
 
-The JAX package updates the KV cache functionally and returns a new one.
-The port writes into a preallocated ``(B, T, Nkv, hd)`` cache in place: the
-prefill writes the prompt's K/V at ``[:, :S]`` of a zeroed cache (the JAX
-package pads to ``max_len``), a decode step writes at ``[:, pos:pos+S]``.
+The JAX package updates its caches functionally and returns new ones.  The
+port writes into preallocated caches in place: the prefill writes the
+prompt's K/V at ``[:, :S]`` of a zeroed ``(B, T, Nkv, hd)`` cache (the JAX
+package pads to ``max_len``), a decode step writes at ``[:, pos:pos+S]``;
+the recurrent kinds ``copy_`` their new state into the fp32 cache tensors.
+The LM hands each layer views of the stacked cache, so returning a fresh
+tensor instead would leave the cache as it was.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..kernels import ops
 from .config import ModelConfig
 from .layers import PSpec, attention, dense, rms_norm, rotate, swiglu
 
+MLSTM_CHUNK = 256   # mLSTM: chunkwise-parallel block size of the plain cell
+
+ATTN_KINDS = ("attn", "attn_local")
+FFN_KINDS = ATTN_KINDS + ("mamba",)     # the kinds that carry an FFN
+
 # Where each block kind the port does not run yet is queued.
 _NOT_PORTED = {
-    "attn_local": "ROADMAP Queue 1 item 3 (local attention, gemma)",
-    "mamba": "ROADMAP Queue 1 item 5 (Mamba, mamba_scan)",
-    "mlstm": "ROADMAP Queue 1 item 6 (xLSTM, mlstm_scan)",
-    "slstm": "ROADMAP Queue 1 item 6 (xLSTM, mlstm_scan)",
-    "moe": "ROADMAP Queue 1 item 4 (MoE)",
-    "mrope": "ROADMAP Queue 1 item 7 (other input modes, M-RoPE)",
+    "attn_local": "ROADMAP Queue 1 item 5 (local attention, gemma)",
+    "mamba": "ROADMAP Queue 1 item 3 (the Jamba slice, mamba_scan)",
+    "moe": "ROADMAP Queue 1 item 3 (the Jamba slice, MoE single-shard)",
+    "mrope": "ROADMAP Queue 1 item 6 (other input modes, M-RoPE)",
 }
 
 
@@ -43,15 +51,16 @@ def not_ported(what: str) -> NotImplementedError:
 class Ctx:
     mode: str                       # train | prefill | decode
     # (cos, sin) of the positions at the layer's rope theta
-    # (layers.rope_cos_sin).  The JAX Ctx carries positions and theta and
-    # every layer recomputes the angles; here the LM computes them once per
-    # pass, which saves launches and gives the same numbers.
-    rope: Tuple[torch.Tensor, torch.Tensor]
+    # (layers.rope_cos_sin), None when the model has no attention.  The JAX
+    # Ctx carries positions and theta and every layer recomputes the
+    # angles; here the LM computes them once per pass, which saves launches
+    # and gives the same numbers.
+    rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
     window: int = 0                 # 0 = global attention
-    cache: Any = None               # layer cache {"k","v"}: (B,T,Nkv,hd)
+    cache: Any = None               # the layer's cache dict (views, in place)
     pos_offset: int = 0             # absolute position of x[0]
     max_len: int = 0                # cache capacity
-    plain: bool = False             # plain attention instead of the kernels
+    plain: bool = False             # plain PyTorch instead of the kernels
 
 
 # ===========================================================================
@@ -116,6 +125,198 @@ def attn_apply(cfg: ModelConfig, p: Mapping[str, torch.Tensor], x, ctx: Ctx):
 
 
 # ===========================================================================
+# xLSTM: mLSTM (matrix memory, chunkwise-parallel) and sLSTM (recurrent)
+# ===========================================================================
+def mlstm_specs(cfg: ModelConfig) -> Dict[str, PSpec]:
+    d = cfg.d_model
+    di = int(cfg.mlstm_proj_factor * d)
+    return {
+        "ln": PSpec((d,), init="zeros"),
+        "w_up": PSpec((d, 2 * di)),
+        "wq": PSpec((di, di)),
+        "wk": PSpec((di, di)),
+        "wv": PSpec((di, di)),
+        "w_if": PSpec((di, 2 * cfg.n_heads), scale=0.1),
+        "out_norm": PSpec((di,), init="zeros"),
+        "w_down": PSpec((di, d)),
+    }
+
+
+def mlstm_cache_shape(cfg: ModelConfig, batch: int, _max_len: int):
+    di = int(cfg.mlstm_proj_factor * cfg.d_model)
+    hd = di // cfg.n_heads
+    return {
+        "C": PSpec((batch, cfg.n_heads, hd, hd), init="zeros",
+                   dtype=torch.float32),
+        "n": PSpec((batch, cfg.n_heads, hd), init="zeros",
+                   dtype=torch.float32),
+    }
+
+
+def _mlstm_cell(q, k, v, i_gate, f_gate, c0, n0):
+    """Chunkwise-parallel gated linear attention (the plain version).
+
+    q,k,v: (B,S,H,hd)   i,f: (B,S,H) in (0,1)   c0: (B,H,hd,hd)
+    n0: (B,H,hd).  Returns (y (B,S,H,hd), c_last, n_last).  Decays stay in
+    log space so chunk ratios never overflow.  As in the JAX cell, a ragged
+    tail is zero-padded, f included, so when S is above the chunk and not a
+    multiple of it each padded row decays the returned state by 1e-8 (y is
+    unaffected; ROADMAP Queue 3).  The kernel pads with f = 1.
+    """
+    B, S, H, hd = q.shape
+    c_len = min(MLSTM_CHUNK, S)
+    n_chunks = -(-S // c_len)
+    pad = n_chunks * c_len - S
+    # Zero-pad the sequence dim at the end, as ``jnp.pad`` does.
+    q, k, v, i_gate, f_gate = (F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+                               for t in (q, k, v, i_gate, f_gate))
+    scale = 1.0 / math.sqrt(hd)
+    mask = torch.ones((c_len, c_len), dtype=torch.bool,
+                      device=q.device).tril()[None, :, :, None]
+    c_state, n_state = c0, n0
+    ys = []
+    for c in range(n_chunks):
+        sl = slice(c * c_len, (c + 1) * c_len)
+        qb, kb, vb, ib, fb = (t[:, sl] for t in (q, k, v, i_gate, f_gate))
+        qb = qb * scale
+        cum = torch.cumsum(torch.log(fb + 1e-8), dim=1)   # (B,c,H) ≤ 0
+        # inter-chunk: decay_t · q_t C_prev
+        y_inter = torch.einsum("bshd,bhde->bshe", qb, c_state) * \
+            torch.exp(cum)[..., None]
+        # intra-chunk: masked scores with decay ratio exp(cum_t - cum_s)·i_s
+        ratio = cum[:, :, None, :] - cum[:, None, :, :]      # (B,t,s,H)
+        w = torch.where(mask, torch.exp(ratio), torch.zeros_like(ratio))
+        sc = torch.einsum("bshd,bthd->bsth", qb, kb)
+        y_intra = torch.einsum("bsth,bthd->bshd", sc * w * ib[:, None], vb)
+        # state: C = A·C + Σ_s exp(cum_c - cum_s)·i_s k_s v_sᵀ
+        rem = torch.exp(cum[:, -1:] - cum) * ib                # (B,c,H)
+        decay = torch.exp(cum[:, -1])                          # (B,H)
+        c_state = c_state * decay[..., None, None] + torch.einsum(
+            "bshd,bshe->bhde", kb * rem[..., None], vb)
+        n_state = n_state * decay[..., None] + torch.einsum(
+            "bshd,bsh->bhd", kb, rem)
+        ys.append(y_inter + y_intra)
+    y = torch.cat(ys, dim=1)[:, :S]
+    return y, c_state, n_state
+
+
+def _mlstm_normalizer(k, i_gate, f_gate, n0):
+    """The normalizer state after the sequence, n ← n·exp(F_c) +
+    Σ_s exp(F_c − F_s)·i_s·k_s over chunks of ``MLSTM_CHUNK`` rows (the
+    last one short, not padded).  The kernel carries only C (as the TPU
+    kernel does), so the block computes n beside it here."""
+    n_state = n0
+    for c in range(0, k.shape[1], MLSTM_CHUNK):
+        sl = slice(c, c + MLSTM_CHUNK)
+        cum = torch.cumsum(torch.log(f_gate[:, sl] + 1e-8), dim=1)
+        rem = torch.exp(cum[:, -1:] - cum) * i_gate[:, sl]
+        n_state = n_state * torch.exp(cum[:, -1])[..., None] + \
+            torch.einsum("bshd,bsh->bhd", k[:, sl], rem)
+    return n_state
+
+
+def mlstm_apply(cfg: ModelConfig, p: Mapping[str, torch.Tensor], x,
+                ctx: Ctx):
+    B, S, D = x.shape
+    H = cfg.n_heads
+    di = int(cfg.mlstm_proj_factor * D)
+    hd = di // H
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    up, z = dense(h, p["w_up"]).chunk(2, dim=-1)
+    q = dense(up, p["wq"]).reshape(B, S, H, hd)
+    k = dense(up, p["wk"]).reshape(B, S, H, hd) / math.sqrt(hd)
+    v = dense(up, p["wv"]).reshape(B, S, H, hd)
+    gates = dense(up, p["w_if"]).reshape(B, S, H, 2)
+    i_gate = torch.sigmoid(gates[..., 0])
+    f_gate = torch.sigmoid(gates[..., 1] + 3.0)  # bias toward remembering
+    cache = ctx.cache
+    if ctx.mode == "decode":
+        c0, n0 = cache["C"], cache["n"]
+    else:
+        c0 = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device)
+        n0 = torch.zeros((B, H, hd), dtype=torch.float32, device=x.device)
+    q, k, v, i_gate, f_gate = (t.float() for t in (q, k, v, i_gate, f_gate))
+    if ctx.plain:
+        y, c_last, n_last = _mlstm_cell(q, k, v, i_gate, f_gate, c0, n0)
+    else:
+        # The kernel writes C straight into the cache (each block reads its
+        # slab of c0 before it writes it, so c0 may be that same tensor).
+        y, c_last = ops.mlstm(q, k, v, i_gate, f_gate, c0,
+                              out=None if cache is None else cache["C"])
+        n_last = _mlstm_normalizer(k, i_gate, f_gate, n0)
+    y = y.reshape(B, S, di).to(x.dtype)
+    y = rms_norm(y, p["out_norm"], cfg.norm_eps) * F.silu(z)
+    out = dense(y, p["w_down"])
+    if cache is not None and ctx.mode in ("decode", "prefill"):
+        if c_last is not cache["C"]:
+            cache["C"].copy_(c_last)
+        cache["n"].copy_(n_last)
+    return out, cache
+
+
+def slstm_specs(cfg: ModelConfig) -> Dict[str, PSpec]:
+    d = cfg.d_model
+    fh = int(cfg.slstm_proj_factor * d)
+    hd = d // cfg.n_heads
+    return {
+        "ln": PSpec((d,), init="zeros"),
+        "w_gates": PSpec((d, 4 * d)),
+        "r_gates": PSpec((cfg.n_heads, hd, 4 * hd), scale=0.3),
+        "ln_ff": PSpec((d,), init="zeros"),
+        "w_ff1": PSpec((d, fh)),
+        "w_ff2": PSpec((fh, d)),
+    }
+
+
+def slstm_cache_shape(cfg: ModelConfig, batch: int, _max_len: int):
+    return {n: PSpec((batch, cfg.d_model), init="zeros", dtype=torch.float32)
+            for n in ("c", "n", "h", "m")}
+
+
+def slstm_apply(cfg: ModelConfig, p: Mapping[str, torch.Tensor], x,
+                ctx: Ctx):
+    """Recurrent scalar-memory cell, one eager step per token (it has no
+    TPU kernel).  Copied exactly, quirks included: the recurrent term is
+    reshaped from (B,H,4·hd) to (B,4D) before the gate split, so gates mix
+    heads; the FFN's gelu is the tanh approximation (``jax.nn.gelu``'s
+    default); the block returns ``out + f - x`` and the LM adds x back."""
+    B, S, D = x.shape
+    H = cfg.n_heads
+    hd = D // H
+    xin = rms_norm(x, p["ln"], cfg.norm_eps)
+    gx = dense(xin, p["w_gates"]).float()                      # (B,S,4D)
+    cache = ctx.cache
+    if ctx.mode == "decode" and cache is not None:
+        c, n, hprev, m = (cache[k].float() for k in ("c", "n", "h", "m"))
+    else:
+        c, n, hprev, m = (torch.zeros((B, D), dtype=torch.float32,
+                                      device=x.device) for _ in range(4))
+    r = p["r_gates"].float()
+    hs = []
+    for t in range(S):
+        rec = torch.einsum("bhd,hde->bhe", hprev.reshape(B, H, hd),
+                           r).reshape(B, 4 * D)
+        it, ft, zt, ot = (gx[:, t] + rec).chunk(4, dim=-1)
+        m_new = torch.maximum(ft + m, it)          # exp-gate stabilizer
+        i_ = torch.exp(it - m_new)
+        f_ = torch.exp(ft + m - m_new)
+        c = f_ * c + i_ * torch.tanh(zt)
+        n = f_ * n + i_
+        hprev = torch.sigmoid(ot) * c / torch.clamp_min(n, 1.0)
+        m = m_new
+        hs.append(hprev)
+    y = torch.stack(hs, dim=1).to(x.dtype)                    # (B,S,D)
+    out = x + y
+    # feed-forward sub-block
+    f = rms_norm(out, p["ln_ff"], cfg.norm_eps)
+    f = dense(F.gelu(dense(f, p["w_ff1"]), approximate="tanh"), p["w_ff2"])
+    if cache is not None and ctx.mode in ("decode", "prefill"):
+        for name, t in zip(("c", "n", "h", "m"), (c, n, hprev, m)):
+            cache[name].copy_(t)
+    return out + f - x, cache  # block returns delta (residual added by LM)
+
+
+# ===========================================================================
 # FFN
 # ===========================================================================
 def ffn_specs(cfg: ModelConfig, is_moe: bool) -> Dict[str, PSpec]:
@@ -147,7 +348,11 @@ def ffn_apply(cfg: ModelConfig, p: Mapping[str, torch.Tensor], x,
 # ===========================================================================
 # Kind registry
 # ===========================================================================
-MIXERS = {"attn": (attn_specs, attn_apply, attn_cache_shape)}
+MIXERS = {
+    "attn": (attn_specs, attn_apply, attn_cache_shape),
+    "mlstm": (mlstm_specs, mlstm_apply, mlstm_cache_shape),
+    "slstm": (slstm_specs, slstm_apply, slstm_cache_shape),
+}
 
 
 def mixer(kind: str):
@@ -159,7 +364,7 @@ def mixer(kind: str):
 def layer_specs(cfg: ModelConfig, layer_idx: int) -> Dict[str, Any]:
     kind = cfg.full_pattern[layer_idx]
     specs = {"mixer": mixer(kind)[0](cfg)}
-    if cfg.d_ff > 0 or cfg.is_moe_layer(layer_idx):
+    if kind in FFN_KINDS and (cfg.d_ff > 0 or cfg.is_moe_layer(layer_idx)):
         specs["ffn"] = ffn_specs(cfg, cfg.is_moe_layer(layer_idx))
     return specs
 

@@ -2,9 +2,11 @@
 package's ``repro.models.config``, copied so the port imports nothing of it.
 
 The layer stack is described by a repeating ``pattern`` of block kinds.  The
-port ships the ``attn`` kind with a dense FFN (the llama3.2-1b serving path);
-the other kinds keep their fields here so a config reads the same in both
-packages.
+port ships the ``attn`` kind with a dense FFN (the llama3.2-1b serving path)
+and the xLSTM kinds ``mlstm`` and ``slstm`` (xlstm-125m); the other kinds
+keep their fields here so a config reads the same in both packages.
+``param_count`` is copied as it stands, including its mLSTM term
+``3·di²/4`` where ``mlstm_specs`` holds three ``di×di`` projections.
 """
 from __future__ import annotations
 

@@ -32,6 +32,8 @@ class PSpec:
     shape: Tuple[int, ...]
     init: str = "normal"            # normal | zeros | ones
     scale: Optional[float] = None   # stddev; None => 1/sqrt(fan_in = shape[-2])
+    # None => the caller's dtype; recurrent states pin fp32 whatever it is
+    dtype: Optional[torch.dtype] = None
 
     def stddev(self) -> float:
         if self.scale is not None:

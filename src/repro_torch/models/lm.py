@@ -12,13 +12,15 @@ Entry points, as in the JAX package:
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict
 
 import torch
 from torch import nn
 
 from ..device import resolve
-from .blocks import Ctx, layer_apply, layer_specs, mixer, not_ported
+from .blocks import ATTN_KINDS, Ctx, layer_apply, layer_specs, mixer, \
+    not_ported
 from .config import ModelConfig
 from .layers import PSpec, dense, init_tensor, rms_norm, rope_cos_sin, \
     softcap, text_positions
@@ -65,9 +67,10 @@ class LM(nn.Module):
             nn.ModuleDict({part: _param_dict(s, dtype, dev)
                            for part, s in layer.items()})
             for layer in self.specs["layers"])
-        # Plain PyTorch attention instead of the kernels: the reference
-        # that chip_smoke.py holds the kernel path against on the card.
-        self.plain_attention = False
+        # The plain PyTorch versions (attention, the chunkwise mLSTM cell)
+        # instead of the kernels: the reference that chip_smoke.py holds the
+        # kernel path against on the card.
+        self.plain_kernels = False
 
     def named_specs(self):
         """(parameter, PSpec) pairs in a fixed order."""
@@ -90,20 +93,19 @@ class LM(nn.Module):
         cfg = self.cfg
         period = len(cfg.pattern)
         aux_total = 0.0
-        rope = rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
+        rope = None                 # only attention layers rotate
+        if any(k in ATTN_KINDS for k in cfg.pattern):
+            rope = rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
         for li, kind in enumerate(cfg.full_pattern):
-            i, p = divmod(li, period)
-            if i < cfg.n_periods:
-                layer_cache = None if cache is None else {
-                    n: t[i] for n, t in cache["layers"][f"p{p}"].items()}
-                is_moe = cfg.is_moe_layer(p)   # as the JAX scan body does
-            else:
-                r = li - cfg.n_periods * period
-                layer_cache = None if cache is None else cache[f"rem{r}"]
-                is_moe = cfg.is_moe_layer(li)
-            ctx = Ctx(mode=mode, rope=rope, cache=layer_cache,
+            # As the JAX scan body does, a layer inside the periods takes
+            # the MoE placement of its pattern position.
+            in_periods = li < cfg.n_periods * period
+            is_moe = cfg.is_moe_layer(li % period if in_periods else li)
+            ctx = Ctx(mode=mode, rope=rope,
+                      cache=None if cache is None else layer_cache(
+                          cfg, cache, li),
                       pos_offset=pos_offset, max_len=max_len,
-                      plain=self.plain_attention)
+                      plain=self.plain_kernels)
             x, _, a = layer_apply(cfg, kind, is_moe, self.layers[li], x, ctx)
             aux_total = aux_total + a
         return x, aux_total
@@ -142,8 +144,8 @@ class LM(nn.Module):
 
     def prefill(self, batch: Dict[str, torch.Tensor], max_len: int):
         """Process the prompt; return (last-position logits, cache, next_pos).
-        The cache is ``init_cache`` in the activations' dtype, filled up to
-        the prompt length and zero past it."""
+        The cache is ``init_cache`` in the activations' dtype (recurrent
+        states in fp32), filled up to the prompt length and zero past it."""
         x = self.embed_inputs(batch)
         B, S, _ = x.shape
         cache = init_cache(self.cfg, B, max_len, dtype=x.dtype,
@@ -189,7 +191,8 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> Dict[str, Any]:
     out: Dict[str, Any] = {}
     if cfg.n_periods > 0:
         out["layers"] = {
-            f"p{p}": {n: PSpec((cfg.n_periods,) + s.shape, init=s.init)
+            f"p{p}": {n: dataclasses.replace(s, shape=(cfg.n_periods,)
+                                             + s.shape)
                       for n, s in mixer(cfg.pattern[p])[2](
                           cfg, batch, max_len).items()}
             for p in range(period)}
@@ -199,13 +202,26 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> Dict[str, Any]:
     return out
 
 
+def layer_cache(cfg: ModelConfig, cache, li: int) -> Dict[str, Any]:
+    """Layer ``li``'s cache: views ``t[i]`` of the tensors stacked over
+    periods, or the ``rem{r}`` dict.  Written in place by the layer."""
+    period = len(cfg.pattern)
+    i, p = divmod(li, period)
+    if i < cfg.n_periods:
+        return {n: t[i] for n, t in cache["layers"][f"p{p}"].items()}
+    return cache[f"rem{li - cfg.n_periods * period}"]
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                dtype=torch.bfloat16, device="cuda"):
+    """Zeroed cache tensors; a leaf whose spec pins a dtype (the recurrent
+    states, fp32) keeps it, the others take ``dtype``."""
     dev = resolve(device)
 
     def build(tree):
         if isinstance(tree, PSpec):
-            return torch.zeros(tree.shape, dtype=dtype, device=dev)
+            return torch.zeros(tree.shape, dtype=tree.dtype or dtype,
+                               device=dev)
         return {k: build(v) for k, v in tree.items()}
 
     return build(cache_specs(cfg, batch, max_len))

@@ -56,3 +56,57 @@ def test_causal_bound_counts_visible_pairs():
     ms, by, _, _ = chip_smoke.attention_bound(4, 32, 8, 4096, 4096, 64,
                                               causal=True)
     assert by == "operations"
+
+
+def test_mlstm_bound_counts_the_served_calls():
+    """The serving shapes of xlstm-125m: the prefill is bound by the
+    recurrence's operations (2.4 GFLOP, 44 MB), a decode step by the bytes
+    of the state."""
+    ms, by, nbytes, flops = chip_smoke.mlstm_bound(4, 256, 4, 384)
+    # 4·hd² per token and head: the update k vᵀ and the product q·C.
+    assert flops == 4 * 4 * 256 * 4 * 384 * 384 == 2_415_919_104
+    assert nbytes == 4 * (4 * 4 * 256 * 4 * 384 + 2 * 4 * 256 * 4) \
+        + 2 * 4 * 4 * 4 * 384 * 384
+    assert by == "operations" and ms == pytest.approx(flops / 67e12 * 1e3)
+    # The chunkwise form's causal half (2·c(c+1)·hd + 4·c·hd² per chunk of
+    # c = 128) is more work, so it would give a looser bound.
+    chunkwise = 4 * 4 * 2 * (2 * 128 * 129 * 384 + 4 * 128 * 384 * 384)
+    assert flops < chunkwise
+    ms, by, nbytes, _ = chip_smoke.mlstm_bound(4, 1, 4, 384)
+    assert by == "bytes" and nbytes > 2 * 4 * 4 * 4 * 384 * 384
+    assert ms == pytest.approx(nbytes / 3.35e12 * 1e3)
+
+
+def hold_smoke_xlstm(monkeypatch, dtype, tol):
+    """``layer_parity`` on the smoke-size xLSTM on the CPU (where ``ops``
+    takes the plain sequential recurrence) passes, and fails when the
+    kernel path's state update is wrong."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_model, smoke
+
+    model = init_model(smoke(get_config("xlstm-125m")), 0, dtype=dtype,
+                       device="cpu")
+    prompts = torch.randint(0, 512, (2, 12),
+                            generator=torch.Generator().manual_seed(0))
+    worst = chip_smoke.layer_parity("xlstm smoke", model, prompts, tol=tol)
+    assert 0.0 <= worst["mixer_rel"] <= tol
+    assert worst["cache"] <= chip_smoke.MODEL_TOL
+
+    real = ops.mlstm
+
+    def leaky(q, k, v, i, f, c0, **kw):
+        return real(q, k, v, i, f * 0.99, c0, **kw)
+
+    monkeypatch.setattr(ops, "mlstm", leaky)
+    with pytest.raises(RuntimeError, match="check failed"):
+        chip_smoke.layer_parity("xlstm smoke", model, prompts, tol=tol)
+
+
+def test_layer_parity_runs_and_catches_a_wrong_state(monkeypatch):
+    hold_smoke_xlstm(monkeypatch, torch.float32, chip_smoke.MODEL_TOL)
+
+
+def test_layer_parity_holds_the_bf16_model(monkeypatch):
+    """The bf16 model, as served, at the bf16 kernel tolerance."""
+    hold_smoke_xlstm(monkeypatch, torch.bfloat16, chip_smoke.TOL["bfloat16"])

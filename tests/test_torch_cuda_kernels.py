@@ -8,7 +8,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from chip_smoke import ATTN_SWEEP, DECODE_SWEEP, TOL  # noqa: E402
+from chip_smoke import (ATTN_SWEEP, DECODE_SWEEP, MLSTM_C_TOL,  # noqa: E402
+                        MLSTM_SWEEP, TOL)
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -59,6 +60,29 @@ def test_flash_decode_matches_ref(case, dtype, cuda):
                                rtol=TOL[dtype], atol=TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", MLSTM_SWEEP)
+def test_mlstm_scan_matches_ref(case, dtype, cuda):
+    B, S, H, hd, chunk = case
+    q = randn(30, (B, S, H, hd), dtype, cuda)
+    k = randn(31, (B, S, H, hd), dtype, cuda)
+    v = randn(32, (B, S, H, hd), dtype, cuda)
+    i = torch.sigmoid(randn(33, (B, S, H), "float32", cuda)).to(DT[dtype])
+    f = torch.sigmoid(randn(34, (B, S, H), "float32", cuda) + 2.0).to(
+        DT[dtype])
+    c0 = randn(35, (B, H, hd, hd), "float32", cuda) * 0.3
+    ops.reset_launch_counts()
+    y, c_last = ops.mlstm(q, k, v, i, f, c0, chunk=chunk)
+    assert ops.launch_counts()["mlstm_scan"] == 1
+    assert y.dtype == q.dtype and c_last.dtype == torch.float32
+    want_y, want_c, _ = ref.mlstm_ref(q, k, v, i, f, c0,
+                                      torch.zeros((B, H, hd), device=cuda))
+    torch.testing.assert_close(y.float(), want_y, rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    torch.testing.assert_close(c_last, want_c, rtol=MLSTM_C_TOL[dtype],
+                               atol=MLSTM_C_TOL[dtype])
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = torch.zeros((1, 4, 8, 48), device=cuda)          # head_dim 48
     with pytest.raises(ValueError, match="head_dim"):
@@ -69,3 +93,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = torch.zeros((1, 4, 1, 64), device=cuda)
     with pytest.raises(ValueError, match="kv_len"):
         ops.flash_decode(q, q, q, 2)
+    x = torch.zeros((1, 8, 2, 40), device=cuda)           # head_dim 40
+    g = torch.zeros((1, 8, 2), device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.mlstm(x, x, x, g, g, torch.zeros((1, 2, 40, 40), device=cuda))

@@ -141,7 +141,8 @@ def test_launch_counters_stay_zero_on_cpu():
     (_, q), (_, k), (_, v) = attn_inputs(ATTN_SWEEP[0], "float32")
     ops.flash_attention(q, k, v)
     ops.flash_decode(q[:, :, :1], k, v, 10)
-    assert ops.launch_counts() == {"flash_attention": 0, "flash_decode": 0}
+    assert ops.launch_counts() == {"flash_attention": 0, "flash_decode": 0,
+                                   "mlstm_scan": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

@@ -1,0 +1,152 @@
+"""The port's mLSTM scan against the JAX package, on the CPU.
+
+The port's plain ``ref.mlstm_ref`` against ``repro.kernels.ref.mlstm_ref``,
+and ``ops.mlstm`` (which takes the plain version for CPU tensors) against the
+Pallas ``mlstm_scan`` run in interpret mode, over the sweep of
+tests/test_kernels.py, one full-width head (hd 384) and a state carried over
+two calls.  The CUDA kernel itself is held against the plain version on the
+card by tests/test_torch_cuda_kernels.py and chip_smoke.py.
+"""
+import math
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+pytest.importorskip("jax.experimental.pallas")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.mlstm_scan import mlstm_scan as jmlstm_scan  # noqa: E402
+from repro_torch.kernels import mlstm_scan, ops, ref  # noqa: E402
+
+# The repo's kernel tolerances (tests/test_kernels.py:28-29); the state at
+# 2e-2 as tests/test_kernels.py:182-183 holds it.
+TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+       "bfloat16": dict(rtol=3e-2, atol=3e-2)}
+C_TOL = dict(rtol=2e-2, atol=2e-2)
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# The sweep of tests/test_kernels.py:157-162, shared with chip_smoke.py.
+from chip_smoke import MLSTM_SWEEP  # noqa: E402
+
+
+def pair(x, dtype):
+    """The same numbers as a jax array and a CPU torch tensor."""
+    x = np.asarray(x, np.float32)
+    return jnp.asarray(x).astype(JDT[dtype]), torch.from_numpy(x).to(
+        TDT[dtype])
+
+
+def inputs(B, S, H, hd, dtype, *, seed=0, c0_scale=0.0, k_scale=1.0):
+    """q, k, v, i, f as (jax, torch) pairs in ``dtype``; c0 and n0 fp32."""
+    rs = np.random.RandomState(seed)
+    q = rs.randn(B, S, H, hd)
+    k = rs.randn(B, S, H, hd) * k_scale
+    v = rs.randn(B, S, H, hd)
+    i = 1 / (1 + np.exp(-rs.randn(B, S, H)))
+    f = 1 / (1 + np.exp(-(rs.randn(B, S, H) + 2.0)))
+    c0 = rs.randn(B, H, hd, hd) * c0_scale
+    pairs = [pair(t, dtype) for t in (q, k, v, i, f)]
+    return pairs, pair(c0, "float32"), pair(np.zeros((B, H, hd)), "float32")
+
+
+def close(got, want, **tol):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **tol)
+
+
+# ---------------------------------------------------------------------------
+# Plain version vs the JAX oracle
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", MLSTM_SWEEP)
+def test_mlstm_ref_matches_jax(case, dtype):
+    B, S, H, hd, _ = case
+    pairs, (jc0, c0), (jn0, n0) = inputs(B, S, H, hd, dtype, c0_scale=0.3)
+    (jq, q), (jk, k), (jv, v), (ji, i), (jf, f) = pairs
+    y, c_last, n_last = ref.mlstm_ref(q, k, v, i, f, c0, n0)
+    jy, jc, jn = jref.mlstm_ref(jq, jk, jv, ji, jf, jc0, jn0)
+    assert y.dtype == c_last.dtype == torch.float32
+    close(y, jy, **TOL["float32"])
+    close(c_last, jc, **TOL["float32"])
+    close(n_last, jn, **TOL["float32"])
+
+
+# ---------------------------------------------------------------------------
+# ops.mlstm (CPU tensors) vs the Pallas kernel in interpret mode
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", MLSTM_SWEEP)
+def test_ops_mlstm_matches_pallas(case, dtype):
+    B, S, H, hd, chunk = case
+    pairs, (jc0, c0), _ = inputs(B, S, H, hd, dtype)
+    (jq, q), (jk, k), (jv, v), (ji, i), (jf, f) = pairs
+    y, c_last = ops.mlstm(q, k, v, i, f, c0, chunk=chunk)
+    jy, jc = jmlstm_scan(jq, jk, jv, ji, jf, jc0, chunk=chunk,
+                         interpret=True)
+    assert y.dtype == TDT[dtype] and y.shape == (B, S, H, hd)
+    assert c_last.dtype == torch.float32 and c_last.shape == (B, H, hd, hd)
+    close(y, jy, **TOL[dtype])
+    close(c_last, jc, **C_TOL)
+
+
+def test_ops_mlstm_full_width_head_matches_pallas():
+    """One head at xlstm-125m's width: hd = 1536 / 4 = 384, with a nonzero
+    incoming state and k scaled as the block scales it."""
+    pairs, (jc0, c0), (jn0, n0) = inputs(1, 16, 1, 384, "float32", seed=3,
+                                         c0_scale=0.05,
+                                         k_scale=1 / math.sqrt(384))
+    (jq, q), (jk, k), (jv, v), (ji, i), (jf, f) = pairs
+    y, c_last = ops.mlstm(q, k, v, i, f, c0, chunk=8)
+    jy, jc = jmlstm_scan(jq, jk, jv, ji, jf, jc0, chunk=8, interpret=True)
+    close(y, jy, **TOL["float32"])
+    close(c_last, jc, **TOL["float32"])
+    jy, jc, _ = jref.mlstm_ref(jq, jk, jv, ji, jf, jc0, jn0)
+    close(y, jy, **TOL["float32"])
+    close(c_last, jc, **TOL["float32"])
+
+
+@pytest.mark.parametrize("in_place", [False, True], ids=["fresh", "in_place"])
+def test_state_carries_across_two_calls(in_place):
+    """Two calls, the second starting from the first's state, equal one call
+    over the whole sequence (and the JAX kernel's).  ``out=c0`` updates the
+    state in place, as the model's decode step does."""
+    B, S, H, hd, chunk = 2, 40, 2, 32, 16
+    pairs, (jc0, c0), _ = inputs(B, S, H, hd, "float32", seed=5,
+                                 c0_scale=0.2)
+    (jq, q), (jk, k), (jv, v), (ji, i), (jf, f) = pairs
+    cut = 23
+    state = c0.clone()
+    y1, c1 = ops.mlstm(q[:, :cut], k[:, :cut], v[:, :cut], i[:, :cut],
+                       f[:, :cut], state, chunk=chunk,
+                       out=state if in_place else None)
+    y2, c2 = ops.mlstm(q[:, cut:], k[:, cut:], v[:, cut:], i[:, cut:],
+                       f[:, cut:], c1, chunk=chunk,
+                       out=c1 if in_place else None)
+    if in_place:
+        assert c1 is state and c2 is state
+    y, c_last = ops.mlstm(q, k, v, i, f, c0, chunk=chunk)
+    torch.testing.assert_close(torch.cat([y1, y2], dim=1), y, rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(c2, c_last, rtol=1e-5, atol=1e-5)
+    jy, jc = jmlstm_scan(jq, jk, jv, ji, jf, jc0, chunk=chunk,
+                         interpret=True)
+    close(torch.cat([y1, y2], dim=1), jy, **TOL["float32"])
+    close(c2, jc, **TOL["float32"])
+
+
+def test_launch_counters_stay_zero_on_cpu():
+    ops.reset_launch_counts()
+    pairs, (_, c0), _ = inputs(1, 8, 1, 16, "float32")
+    ops.mlstm(*(t for _, t in pairs), c0, chunk=4)
+    assert ops.launch_counts() == {"flash_attention": 0, "flash_decode": 0,
+                                   "mlstm_scan": 0}
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    pairs, (_, c0), _ = inputs(1, 8, 1, 16, "float32")
+    with pytest.raises(ValueError, match="CUDA"):
+        mlstm_scan.mlstm_scan(*(t for _, t in pairs), c0)

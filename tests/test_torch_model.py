@@ -104,11 +104,11 @@ def test_plain_and_kernel_paths_agree_on_cpu(llama):
     batch = {"tokens": torch.from_numpy(tokens(1, 2, 12))}
     batch["labels"] = batch["tokens"]
     _, via_ops = model(batch)
-    model.plain_attention = True
+    model.plain_kernels = True
     try:
         _, plain = model(batch)
     finally:
-        model.plain_attention = False
+        model.plain_kernels = False
     torch.testing.assert_close(via_ops, plain, rtol=1e-5, atol=1e-5)
 
 
