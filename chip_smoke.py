@@ -5,7 +5,7 @@
 
 Phases, each of which must pass (any failure exits non-zero):
   1. the card's name and power limit; TF32 off for fp32 products;
-  2. build the three CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+  2. build the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
      nvcc per source, started together);
   3. hold each kernel against its plain PyTorch version on the card, fp32
      and bf16, over the repo's sweeps and the serving paths' own shapes;
@@ -22,7 +22,15 @@ Phases, each of which must pass (any failure exits non-zero):
   8. serve xlstm-125m in bf16 as in phase 5; every mLSTM layer of the
      prefill and of each decode step went through ``mlstm_scan``; then the
      bf16 model's kernel path against its plain path layer by layer;
-  9. one ``{"kernels": [...]}`` line with each kernel's time, bound, plain
+  9. full-width jamba-v0.1-52b cut to 1 of its 4 periods (8 layers) in
+     fp32: kernel path against plain path layer by layer, then the
+     free-running logits as in phase 4, with the expert choices that
+     differ between the two paths counted;
+ 10. serve jamba-v0.1-52b cut to 2 periods (16 layers: 52 GB of bf16
+     weights; all 32 layers would be 103 GB) in bf16 as in phase 5: every
+     mamba layer went through ``mamba_scan``, both attention layers
+     through the attention kernels; then its layers as in phase 9;
+ 11. one ``{"kernels": [...]}`` line with each kernel's time, bound, plain
      and library times at the serving shapes.
 The last line is ``{"ok": true, "device": {...}}``.  Without a card, or
 outside a checkout, the script exits non-zero and prints no result.
@@ -40,7 +48,9 @@ ROOT = Path(__file__).resolve().parent
 
 # The repo's kernel tolerances (tests/test_kernels.py:28-29).
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
-# The repo's kernel sweeps (tests/test_kernels.py:35-44 and :76-86).
+# The repo's kernel sweeps (tests/test_kernels.py:35-44 and :76-86), the
+# attention sweep with one head-dim-128 case appended (the CPU tests pick
+# earlier cases by index).
 ATTN_SWEEP = [
     # (B, Hq, Hkv, Sq, Skv, hd, causal, window, softcap)
     (1, 2, 2, 64, 64, 32, True, 0, 0.0),      # MHA causal
@@ -50,6 +60,7 @@ ATTN_SWEEP = [
     (1, 2, 2, 64, 64, 32, True, 0, 50.0),     # softcap (gemma)
     (1, 2, 2, 64, 64, 32, False, 0, 0.0),     # non-causal
     (1, 8, 4, 160, 224, 64, True, 64, 30.0),  # everything at once, ragged
+    (1, 4, 2, 80, 112, 128, True, 48, 30.0),  # head dim 128, all at once
 ]
 DECODE_SWEEP = [
     # (B, Hq, Hkv, T, hd, kv_len, softcap)
@@ -69,6 +80,13 @@ MLSTM_SWEEP = [                      # tests/test_kernels.py:157-162
     (1, 64, 1, 64, 64),        # single chunk
 ]
 MLSTM_C_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the returned state
+MAMBA_SWEEP = [                      # tests/test_kernels.py:107-112
+    # (B, S, di, N, chunk)
+    (1, 32, 64, 8, 8),
+    (2, 100, 128, 16, 16),     # ragged seq vs chunk
+    (1, 64, 256, 4, 64),       # single chunk
+]
+MAMBA_H_TOL = 5e-3          # the returned state (tests/test_kernels.py:130)
 
 # The serving path: llama3.2-1b, 4 requests, 256-token prompts, 32 new
 # tokens, cache capacity 512.
@@ -83,6 +101,12 @@ BF16_MODEL_TOL = 0.25  # bf16 prefill logits: bf16 rounding through 16 layers
 # launches mlstm_scan once per mLSTM layer.
 XLSTM = "xlstm-125m"
 MLSTM_HD = 384
+# The third: jamba-v0.1-52b at full width, its depth cut to whole periods
+# of its 8-layer pattern (7 mamba + 1 attention, MoE on odd layers) so the
+# weights fit the card: 1 period in fp32 (13.3 B parameters, 53 GB), 2 in
+# bf16 for serving (26.1 B, 52.1 GB).  Its attention runs at head dim 128.
+JAMBA = "jamba-v0.1-52b"
+JAMBA_FP32_LAYERS, JAMBA_SERVE_LAYERS = 8, 16
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -138,6 +162,23 @@ def mlstm_bound(B, S, H, hd, dtype="float32"):
     return t_ops, "operations", nbytes, flops
 
 
+def mamba_bound(B, S, di, N, dtype="float32"):
+    """(bound_ms, bound_by, bytes, flops) for one mamba_scan call: u, dt,
+    b, c, a and h0 read once, y and h_last written once, and 8 operations
+    per (token, channel, state) of the recurrence: dt·a, its exp (counted
+    as one fp32 operation: the table of peaks has no special-function
+    rate), exp·h, dt·b, ·u, the add, and the multiply-add of y = h·c."""
+    itemsize = 2 if dtype == "bfloat16" else 4
+    nbytes = itemsize * (3 * B * S * di + 2 * B * S * N) \
+        + 4 * di * N + 2 * 4 * B * di * N
+    flops = 8.0 * B * S * di * N
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", nbytes, flops
+    return t_ops, "operations", nbytes, flops
+
+
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -145,25 +186,26 @@ def max_err(a, b) -> float:
 def layer_parity(name, model, prompts, tol=MODEL_TOL):
     """The kernel path against the plain path layer by layer: every
     layer's mixer on both paths is fed the plain path's input (and each
-    path keeps its own cache), over the prefill and FP32_DECODE_STEPS
-    decode steps on the plain path's greedy tokens.  Each mixer output
-    must agree within ``tol`` relative to its largest value (the mixer
-    output, not the layer's x + mixer output, in which a bf16 residual
-    would hide a wrong mixer), and after the prefill and the last step
-    every cache leaf within MODEL_TOL.  For a model whose free-running
-    paths part by more than rounding (the sLSTM recurrence at random
-    full-width init amplifies 1e-6 differences over 256 tokens), this
-    holds the kernel inside the model where the end-to-end logits
-    cannot.  Returns the largest errors."""
+    path keeps its own cache), and the layer's FFN or MoE, which has no
+    kernel, runs once on the plain path's residual; over the prefill and
+    FP32_DECODE_STEPS decode steps on the plain path's greedy tokens.
+    Each mixer output must agree within ``tol`` relative to its largest
+    value (the mixer output, not the layer's x + mixer output, in which a
+    bf16 residual would hide a wrong mixer), and after the prefill and the
+    last step every cache leaf in its own dtype: fp32 leaves within
+    MODEL_TOL, the others (attention K/V, the mamba conv window) within
+    that dtype's kernel tolerance.  For a model whose free-running paths
+    part by more than rounding (the sLSTM recurrence at random full-width
+    init amplifies 1e-6 differences over 256 tokens), this holds the
+    kernel inside the model where the end-to-end logits cannot.  Returns
+    the largest errors."""
     import torch
 
-    from repro_torch.models import init_cache, layer_cache
-    from repro_torch.models.blocks import ATTN_KINDS, Ctx, _scaled, mixer
+    from repro_torch.models import init_cache, layer_cache, layer_is_moe
+    from repro_torch.models.blocks import Ctx, _scaled, ffn_apply, mixer
+    from repro_torch.models.layers import text_positions
     cfg = model.cfg
     B, S = prompts.shape
-    check(not set(cfg.pattern) & set(ATTN_KINDS)
-          and not any("ffn" in layer for layer in model.layers),
-          "layer_parity: no rope tables, no FFN")
     dtype = next(model.parameters()).dtype
     caches = {plain: init_cache(cfg, B, MAX_LEN, dtype=dtype,
                                 device=prompts.device)
@@ -172,10 +214,12 @@ def layer_parity(name, model, prompts, tol=MODEL_TOL):
 
     def one_pass(tokens, mode, pos):
         x = model.embed_inputs({"tokens": tokens})
+        rope = model.rope(text_positions(B, tokens.shape[1], pos,
+                                         device=tokens.device))
         for li, kind in enumerate(cfg.full_pattern):
             out = {}
             for plain in (False, True):
-                ctx = Ctx(mode=mode, cache=layer_cache(
+                ctx = Ctx(mode=mode, rope=rope, cache=layer_cache(
                     cfg, caches[plain], li), pos_offset=pos,
                     max_len=MAX_LEN, plain=plain)
                 out[plain], _ = mixer(kind)[1](
@@ -186,6 +230,10 @@ def layer_parity(name, model, prompts, tol=MODEL_TOL):
                   f"output relative err {e:g} > {tol}")
             worst["mixer_rel"] = max(worst["mixer_rel"], e)
             x = x + _scaled(out[True], cfg.residual_scale)
+            if "ffn" in model.layers[li]:
+                f, _ = ffn_apply(cfg, model.layers[li]["ffn"], x,
+                                 layer_is_moe(cfg, li))
+                x = x + _scaled(f, cfg.residual_scale)
         return model._head(x[:, -1:])
 
     def same_caches(when):
@@ -194,9 +242,11 @@ def layer_parity(name, model, prompts, tol=MODEL_TOL):
             want = layer_cache(cfg, caches[True], li)
             for n, t in got.items():
                 e = max_err(t, want[n])
-                check(t.dtype == torch.float32 and e <= MODEL_TOL,
+                leaf_tol = MODEL_TOL if t.dtype == torch.float32 else \
+                    TOL[str(t.dtype).split(".")[-1]]
+                check(t.dtype == want[n].dtype and e <= leaf_tol,
                       f"{name} cache layer {li} {n} {t.dtype} err {e:g} "
-                      f"{when}")
+                      f"(tol {leaf_tol}) {when}")
                 worst["cache"] = max(worst["cache"], e)
 
     logits = one_pass(prompts, "prefill", 0)
@@ -210,8 +260,41 @@ def layer_parity(name, model, prompts, tol=MODEL_TOL):
         f"by layer on the plain path's inputs: prefill + "
         f"{FP32_DECODE_STEPS} decode steps, mixer outputs max relative err "
         f"{worst['mixer_rel']:g} (tol {tol}), cache leaves max abs err "
-        f"{worst['cache']:g} (tol {MODEL_TOL})")
+        f"{worst['cache']:g} (fp32 leaves tol {MODEL_TOL})")
     return worst
+
+
+class recorded_routes:
+    """Within the block, record the expert ids every MoE router picks, per
+    path (``model.plain_kernels``), so two paths' routing can be compared."""
+
+    def __init__(self, model):
+        from repro_torch.models import moe
+        self.model, self.moe, self.ids = model, moe, {False: [], True: []}
+
+    def __enter__(self):
+        real = self.real = self.moe._route
+
+        def route(cfg, router_w, x):
+            gates, ids, aux = real(cfg, router_w, x)
+            self.ids[self.model.plain_kernels].append(ids)
+            return gates, ids, aux
+
+        self.moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self.real
+
+    def differ(self):
+        """(choices that differ between the paths, choices compared): a
+        token's top-k set at one router call."""
+        n = total = 0
+        for a, b in zip(self.ids[False], self.ids[True]):
+            a, b = a.sort(-1).values, b.sort(-1).values
+            n += int((a != b).any(-1).sum())
+            total += a.shape[0]
+        return n, total
 
 
 def main() -> int:
@@ -234,7 +317,7 @@ def run(torch) -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.launch.serve import ServeConfig, generate
-    from repro_torch.models import init_model
+    from repro_torch.models import init_model, layer_is_moe
     from repro_torch.serve import (AdmissionConfig, ContinuousBatcher,
                                    KernelDecode, StepRequest)
 
@@ -270,7 +353,9 @@ def run(torch) -> int:
 
     # -- 3. kernels against their plain versions -------------------------------
     errs = {"flash_attention": {}, "flash_decode": {}, "mlstm_scan": {},
-            "mlstm_scan_state": {}}
+            "mlstm_scan_state": {}, "flash_attention_hd128": {},
+            "flash_decode_hd128": {}, "mamba_scan": {},
+            "mamba_scan_state": {}}
 
     def hold(name, got, want, dtype, what, main_shape=False, tol=None):
         torch.cuda.synchronize()
@@ -311,6 +396,33 @@ def run(torch) -> int:
              tol=MLSTM_C_TOL[dtype])
         return y, c_last
 
+    def mamba_inputs(seed, B, S, di, N, dtype, h0_scale=0.0):
+        """u, dt, a, b, c, h0 as the repo's kernel tests make them: dt a
+        softplus, a = -exp(0.5 normal), the state fp32."""
+        u = randn(seed, (B, S, di), dtype)
+        dt = F.softplus(randn(seed + 1, (B, S, di), "float32"))
+        a = -torch.exp(randn(seed + 2, (di, N), "float32") * 0.5)
+        b = randn(seed + 3, (B, S, N), dtype)
+        c = randn(seed + 4, (B, S, N), dtype)
+        h0 = randn(seed + 5, (B, di, N), "float32") * h0_scale
+        return u, dt.to(DT[dtype]), a, b, c, h0
+
+    def hold_mamba(inp, dtype, what, main_shape=False, in_place=False):
+        """One mamba_scan call against ref.mamba_scan_ref: y at TOL, the
+        state at MAMBA_H_TOL.  ``in_place`` passes out=h0, as the decode
+        step does."""
+        want_y, want_h = ref.mamba_scan_ref(*inp)
+        h0 = inp[-1].clone() if in_place else inp[-1]
+        y, h = ops.selective_scan(*inp[:-1], h0, out=h0 if in_place
+                                  else None)
+        check(h is h0 or not in_place, "mamba_scan out= is the state")
+        hold("mamba_scan", y, want_y.to(y.dtype), dtype, what, main_shape)
+        hold("mamba_scan_state", h, want_h, dtype, what, main_shape,
+             tol=MAMBA_H_TOL)
+        return y, h
+
+    jcfg = get_config(JAMBA)
+    JDI, JN, JHD = jcfg.ssm_expand * jcfg.d_model, jcfg.ssm_state, jcfg.hd
     n_checks = 0
     for dtype in ("float32", "bfloat16"):
         for case in ATTN_SWEEP:
@@ -388,6 +500,47 @@ def run(torch) -> int:
                    dtype, f"decode ({BATCH},1,{H},{MLSTM_HD}) in place",
                    main_shape=True, in_place=True)
         n_checks += len(MLSTM_SWEEP) + 4
+        # Jamba's attention at head dim 128: the prefill, and decode steps
+        # against its (4,8,512,128) cache.
+        q = randn(90, (BATCH, PROMPT, 32, JHD), dtype).transpose(1, 2)
+        k = randn(91, (BATCH, PROMPT, 8, JHD), dtype).transpose(1, 2)
+        v = randn(92, (BATCH, PROMPT, 8, JHD), dtype).transpose(1, 2)
+        hold("flash_attention_hd128", ops.flash_attention(q, k, v),
+             ref.attention_ref(q, k, v), dtype,
+             f"prefill (4,32,256,{JHD})/(4,8,256,{JHD})", main_shape=True)
+        qd = randn(93, (BATCH, 1, 32, JHD), dtype).transpose(1, 2)
+        kc = randn(94, (BATCH, MAX_LEN, 8, JHD), dtype).transpose(1, 2)
+        vc = randn(95, (BATCH, MAX_LEN, 8, JHD), dtype).transpose(1, 2)
+        for kv_len in DECODE_KV_LENS:
+            hold("flash_decode_hd128", ops.flash_decode(qd, kc, vc, kv_len),
+                 ref.attention_ref(qd, kc, vc, causal=False, kv_len=kv_len),
+                 dtype, f"decode (4,32,1,{JHD})/(4,8,512,{JHD}) "
+                 f"kv_len={kv_len}", main_shape=True)
+        n_checks += 1 + len(DECODE_KV_LENS)
+        # mamba_scan: the repo's sweep from a nonzero state, the state
+        # carried across two calls, and Jamba's serving shapes (the prefill
+        # from a zero state; a decode step updating the state in place).
+        for case in MAMBA_SWEEP:
+            B, S, di, N, _ = case
+            hold_mamba(mamba_inputs(100, B, S, di, N, dtype, 0.3), dtype,
+                       str(case))
+        inp = mamba_inputs(110, 2, 200, 256, 16, dtype, 0.3)
+        y, h = hold_mamba(inp, dtype, "ragged (2,200,256,16)")
+        u, dt, a, b, c, h0 = inp
+        y1, h1 = ops.selective_scan(u[:, :77], dt[:, :77], a, b[:, :77],
+                                    c[:, :77], h0)
+        y2, h2 = ops.selective_scan(u[:, 77:], dt[:, 77:], a, b[:, 77:],
+                                    c[:, 77:], h1)
+        hold("mamba_scan", torch.cat([y1, y2], dim=1), y, dtype,
+             "state carried over two calls (77 + 123 rows)")
+        hold("mamba_scan_state", h2, h, dtype,
+             "state carried over two calls", tol=MAMBA_H_TOL)
+        hold_mamba(mamba_inputs(120, BATCH, PROMPT, JDI, JN, dtype), dtype,
+                   f"prefill ({BATCH},{PROMPT},{JDI},{JN})", main_shape=True)
+        hold_mamba(mamba_inputs(130, BATCH, 1, JDI, JN, dtype, 0.5), dtype,
+                   f"decode ({BATCH},1,{JDI},{JN}) in place",
+                   main_shape=True, in_place=True)
+        n_checks += len(MAMBA_SWEEP) + 4
     log(f"[kernels] {n_checks} comparisons with the plain version passed; "
         f"main-shape max abs err {json.dumps(errs)}")
 
@@ -398,7 +551,18 @@ def run(torch) -> int:
     def fp32_parity(name, model, prompts):
         """Prefill and FP32_DECODE_STEPS greedy decode steps on the kernel
         path and on the plain path: logits within MODEL_TOL, the same greedy
-        tokens except at near-ties."""
+        tokens except at near-ties.  For an MoE model, the expert choices
+        that differ between the two paths are counted and printed first."""
+        with recorded_routes(model) as routes:
+            try:
+                free_running(name, model, prompts)
+            finally:
+                n, total = routes.differ()
+                if total:
+                    log(f"[fp32] {name} expert choices that differ between "
+                        f"the paths: {n} of {total} (token, router call)")
+
+    def free_running(name, model, prompts):
         cfg = model.cfg
 
         def both_paths(fn):
@@ -444,27 +608,35 @@ def run(torch) -> int:
             f"{max(fp32_errs):g} (tol {MODEL_TOL}), relative "
             f"{rel_err(lk, lp):g}; greedy tokens equal ({ties} near-ties)")
 
-    def fp32_phase(arch, layerwise=False):
-        cfg = get_config(arch)
+    def fp32_phase(cfg, layerwise=False, free=True):
+        """The fp32 model of ``cfg``: ``layer_parity`` if ``layerwise``,
+        then ``fp32_parity`` if ``free``; the model is freed after."""
         t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
         model = init_model(cfg, 0, dtype=torch.float32, device=dev)
         torch.cuda.synchronize()
         n_params = sum(p.numel() for p in model.parameters())
-        log(f"[fp32] {arch}: {cfg.n_layers} layers, {n_params} parameters, "
-            f"init {time.perf_counter() - t0:.1f} s")
+        log(f"[fp32] {cfg.name}: {cfg.n_layers} layers, {n_params} "
+            f"parameters, init {time.perf_counter() - t0:.1f} s, peak "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
         gen = torch.Generator(device=dev)
         gen.manual_seed(1)
         prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
                                 generator=gen, device=dev)
+        t0 = time.perf_counter()
         if layerwise:
-            layer_parity(arch, model, prompts)
-        else:
-            fp32_parity(arch, model, prompts)
+            layer_parity(cfg.name, model, prompts)
+        if free:
+            fp32_parity(cfg.name, model, prompts)
+        torch.cuda.synchronize()
+        log(f"[fp32] {cfg.name}: parity {time.perf_counter() - t0:.1f} s, "
+            f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
         del model
         torch.cuda.empty_cache()
-        return cfg, prompts
+        return prompts
 
-    cfg, prompts = fp32_phase(ARCH)
+    cfg = get_config(ARCH)
+    prompts = fp32_phase(cfg)
 
     # -- 5. serve llama3.2-1b in bf16 through the kernels ----------------------
     def bf16_logits_parity(model, prompts, lk):
@@ -483,7 +655,12 @@ def run(torch) -> int:
         three more waves and of three prefills alone; then
         ``parity(model, prompts, prefill_logits)`` holds the bf16 kernel
         path against the plain path and returns its errors."""
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
         model = init_model(cfg, 0, dtype=torch.bfloat16, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
         scfg = ServeConfig(max_new_tokens=NEW, max_len=MAX_LEN)
         generate(cfg, model, prompts[:, :PROMPT // 4], dataclasses.replace(
             scfg, max_new_tokens=4), device=dev)              # warm-up
@@ -524,14 +701,16 @@ def run(torch) -> int:
                  "wall_ms": wall_ms, "prefill_ms": prefill_ms,
                  "decode_ms_per_token": decode_ms,
                  "tokens_per_s": BATCH * NEW / wall_ms * 1e3,
-                 "peak_gb": peak_gb, "launches": launches, **errors}
+                 "peak_gb": peak_gb, "init_s": init_s,
+                 "init_peak_gb": init_peak_gb, "launches": launches,
+                 **errors}
         log(f"[serve] {json.dumps(serve)}")
         return model, launches
 
     model, serve_launches = serve_phase(cfg, prompts, {
         "flash_attention": cfg.n_layers,
-        "flash_decode": cfg.n_layers * (NEW - 1), "mlstm_scan": 0},
-        bf16_logits_parity)
+        "flash_decode": cfg.n_layers * (NEW - 1), "mlstm_scan": 0,
+        "mamba_scan": 0}, bf16_logits_parity)
 
     # -- 6. continuous batching on KernelDecode --------------------------------
     sessions, steps = 16, 8
@@ -571,17 +750,56 @@ def run(torch) -> int:
     # Its free-running paths part by more than rounding (see layer_parity;
     # measured by ``python -m repro_torch.launch.xlstm_probe``), so the
     # kernel is held inside the model layer by layer, in fp32 and in bf16.
-    xcfg, xprompts = fp32_phase(XLSTM, layerwise=True)
+    xcfg = get_config(XLSTM)
+    xprompts = fp32_phase(xcfg, layerwise=True, free=False)
     n_mlstm = sum(kind == "mlstm" for kind in xcfg.full_pattern)
     model, xlstm_launches = serve_phase(xcfg, xprompts, {
         "flash_attention": 0, "flash_decode": 0,
-        "mlstm_scan": n_mlstm * NEW},
+        "mlstm_scan": n_mlstm * NEW, "mamba_scan": 0},
         lambda model, prompts, _: {"bf16_layer_parity": layer_parity(
             XLSTM, model, prompts, tol=TOL["bfloat16"])})
     del model
     torch.cuda.empty_cache()
 
-    # -- 9. kernel times at the serving shapes ---------------------------------
+    # -- 9./10. jamba-v0.1-52b: fp32 parity, then served in bf16 --------------
+    # The depth is cut to whole periods so the weights fit the card (see
+    # JAMBA_*_LAYERS); every width is the published one.
+    t_jamba = time.perf_counter()
+    jcfg1 = dataclasses.replace(jcfg, n_layers=JAMBA_FP32_LAYERS)
+    log(f"[jamba] depth cut: {jcfg.n_layers} -> {JAMBA_FP32_LAYERS} layers "
+        f"in fp32, {JAMBA_SERVE_LAYERS} in bf16; widths as published "
+        f"(d_model {jcfg.d_model}, {jcfg.n_experts} experts of d_ff "
+        f"{jcfg.expert_d_ff}, di {JDI}, N {JN}, head dim {JHD})")
+    jprompts = fp32_phase(jcfg1, layerwise=True, free=True)
+    jcfg2 = dataclasses.replace(jcfg, n_layers=JAMBA_SERVE_LAYERS)
+    kinds = jcfg2.full_pattern
+    n_mamba, n_attn = kinds.count("mamba"), kinds.count("attn")
+    model, jamba_launches = serve_phase(jcfg2, jprompts, {
+        "flash_attention": n_attn, "flash_decode": n_attn * (NEW - 1),
+        "mlstm_scan": 0, "mamba_scan": n_mamba * NEW},
+        lambda model, prompts, _: {"bf16_layer_parity": layer_parity(
+            JAMBA, model, prompts, tol=TOL["bfloat16"])})
+    # The decode floor: a step reads every weight once (the embedding only
+    # its 4 rows, which the count below ignores), and with the expert
+    # products as they stand (three batched products over all experts)
+    # every expert; reading only the picked experts (at most BATCH * k of
+    # them per MoE layer) would lower it.
+    param_bytes = 2 * sum(p.numel() for p in model.parameters())
+    n_moe = sum(layer_is_moe(jcfg2, li) for li in range(jcfg2.n_layers))
+    expert_bytes = 2 * 3 * jcfg2.d_model * jcfg2.expert_d_ff
+    picked = min(jcfg2.n_experts, BATCH * jcfg2.experts_per_token)
+    unread = n_moe * (jcfg2.n_experts - picked) * expert_bytes
+    log(f"[jamba] decode floor per token (bf16 weights / 3.35 TB/s): every "
+        f"expert read {param_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms "
+        f"({param_bytes / 1e9:.1f} GB); only the <= {picked} picked of "
+        f"{jcfg2.n_experts} experts per MoE layer "
+        f"{(param_bytes - unread) / HBM_BYTES_PER_S * 1e3:.2f} ms "
+        f"({(param_bytes - unread) / 1e9:.1f} GB); Jamba phases "
+        f"{time.perf_counter() - t_jamba:.1f} s")
+    del model
+    torch.cuda.empty_cache()
+
+    # -- 11. kernel times at the serving shapes -------------------------------
     # Before each timed call the card spins for about 1 ms (so the host has
     # queued the call before the card reaches it, and the events bracket
     # device time, not the wrapper's Python) and zeroes 64 MB (evicting the
@@ -603,54 +821,82 @@ def run(torch) -> int:
         torch.cuda.synchronize()
         return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
 
-    dtype = "bfloat16"
-    q = randn(20, (BATCH, PROMPT, 32, 64), dtype).transpose(1, 2)
-    k = randn(21, (BATCH, PROMPT, 8, 64), dtype).transpose(1, 2)
-    v = randn(22, (BATCH, PROMPT, 8, 64), dtype).transpose(1, 2)
-    ke, ve = (t.repeat_interleave(4, dim=1).contiguous() for t in (k, v))
-    qc = q.contiguous()
-    fa_bound = attention_bound(BATCH, 32, 8, PROMPT, PROMPT, 64, causal=True)
-    fa = {
-        "ms": cold_ms(lambda: ops.flash_attention(q, k, v, causal=True)),
-        "plain_ms": cold_ms(lambda: ref.attention_ref(q, k, v, causal=True)),
-        "library_ms": cold_ms(lambda: F.scaled_dot_product_attention(
-            qc, ke, ve, is_causal=True)),
-    }
     kv_len = PROMPT + NEW // 2      # the middle of the served decode run
-    qd = randn(23, (BATCH, 1, 32, 64), dtype).transpose(1, 2)
-    kc = randn(24, (BATCH, MAX_LEN, 8, 64), dtype).transpose(1, 2)
-    vc = randn(25, (BATCH, MAX_LEN, 8, 64), dtype).transpose(1, 2)
-    kl, vl = (t[:, :, :kv_len].repeat_interleave(4, dim=1).contiguous()
-              for t in (kc, vc))
-    qdc = qd.contiguous()
-    fd_bound = attention_bound(BATCH, 32, 8, 1, MAX_LEN, 64, causal=False,
-                               kv_len=kv_len)
-    fd = {
-        "ms": cold_ms(lambda: ops.flash_decode(qd, kc, vc, kv_len)),
-        "plain_ms": cold_ms(lambda: ref.attention_ref(
-            qd, kc, vc, causal=False, kv_len=kv_len)),
-        "library_ms": cold_ms(lambda: F.scaled_dot_product_attention(
-            qdc, kl, vl)),
-    }
+
+    def attention_times(hd, seed):
+        """flash_attention (prefill) and flash_decode (one step at kv_len)
+        at the serving shapes with head dim ``hd``, bf16: device ms of the
+        kernel, of the plain version and of SDPA, and the bounds."""
+        dtype = "bfloat16"
+        q = randn(seed, (BATCH, PROMPT, 32, hd), dtype).transpose(1, 2)
+        k = randn(seed + 1, (BATCH, PROMPT, 8, hd), dtype).transpose(1, 2)
+        v = randn(seed + 2, (BATCH, PROMPT, 8, hd), dtype).transpose(1, 2)
+        ke, ve = (t.repeat_interleave(4, dim=1).contiguous() for t in (k, v))
+        qc = q.contiguous()
+        fa = {
+            "ms": cold_ms(lambda: ops.flash_attention(q, k, v, causal=True)),
+            "plain_ms": cold_ms(lambda: ref.attention_ref(q, k, v,
+                                                          causal=True)),
+            "library_ms": cold_ms(lambda: F.scaled_dot_product_attention(
+                qc, ke, ve, is_causal=True)),
+            "bound": attention_bound(BATCH, 32, 8, PROMPT, PROMPT, hd,
+                                     causal=True),
+            "shape": f"q (4,32,256,{hd}) k,v (4,8,256,{hd}) bf16 causal",
+        }
+        qd = randn(seed + 3, (BATCH, 1, 32, hd), dtype).transpose(1, 2)
+        kc = randn(seed + 4, (BATCH, MAX_LEN, 8, hd), dtype).transpose(1, 2)
+        vc = randn(seed + 5, (BATCH, MAX_LEN, 8, hd), dtype).transpose(1, 2)
+        kl, vl = (t[:, :, :kv_len].repeat_interleave(4, dim=1).contiguous()
+                  for t in (kc, vc))
+        qdc = qd.contiguous()
+        fd = {
+            "ms": cold_ms(lambda: ops.flash_decode(qd, kc, vc, kv_len)),
+            "plain_ms": cold_ms(lambda: ref.attention_ref(
+                qd, kc, vc, causal=False, kv_len=kv_len)),
+            "library_ms": cold_ms(lambda: F.scaled_dot_product_attention(
+                qdc, kl, vl)),
+            "bound": attention_bound(BATCH, 32, 8, 1, MAX_LEN, hd,
+                                     causal=False, kv_len=kv_len),
+            "shape": f"q (4,32,1,{hd}) cache (4,8,512,{hd}) bf16 kv_len "
+                     f"{kv_len}",
+        }
+        return {"flash_attention": fa, "flash_decode": fd}
+
+    # Each served path's counted wave (counters set to 0 just before it).
+    by_path = {ARCH: serve_launches, XLSTM: xlstm_launches,
+               jcfg2.name: jamba_launches}
+
+    def launches_of(name):
+        per = {path: c[name] for path, c in by_path.items()}
+        return sum(per.values()), per
+
+    llama_t, jamba_t = attention_times(64, 20), attention_times(JHD, 140)
     kernels = []
-    for name, t, bound, replaces, shape in (
-            ("flash_attention", fa, fa_bound,
-             "src/repro/kernels/flash_attention.py:85",
-             "q (4,32,256,64) k,v (4,8,256,64) bf16 causal"),
-            ("flash_decode", fd, fd_bound,
-             "src/repro/kernels/decode_attention.py:66",
-             f"q (4,32,1,64) cache (4,8,512,64) bf16 kv_len {kv_len}")):
+    for name, replaces in (
+            ("flash_attention", "src/repro/kernels/flash_attention.py:85"),
+            ("flash_decode", "src/repro/kernels/decode_attention.py:66")):
+        t, tj = llama_t[name], jamba_t[name]
+        total, per = launches_of(name)
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces,
-            "launches": serve_launches[name],
+            "launches": total, "launches_by_path": per,
             "max_abs_err": errs[name]["bfloat16"],
             "max_abs_err_fp32": errs[name]["float32"],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": bound[0], "bound_by": bound[1],
+            "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
             "library_ms": t["library_ms"],
-            "shape": shape, "bytes": bound[2], "flops": bound[3],
+            "shape": t["shape"], "bytes": t["bound"][2],
+            "flops": t["bound"][3],
+            "hd128_ms": tj["ms"], "hd128_plain_ms": tj["plain_ms"],
+            "hd128_bound_ms": tj["bound"][0],
+            "hd128_bound_by": tj["bound"][1],
+            "hd128_library_ms": tj["library_ms"],
+            "hd128_shape": tj["shape"], "hd128_bytes": tj["bound"][2],
+            "hd128_flops": tj["bound"][3],
+            "hd128_max_abs_err": errs[f"{name}_hd128"]["bfloat16"],
+            "hd128_max_abs_err_fp32": errs[f"{name}_hd128"]["float32"],
             "bound_formula": "max(bytes / 3.35e12 B/s, flops / 989e12 "
                              "FLOP/s); bytes = inputs read once (keys up "
                              "to kv_len) + output; flops = 4*hd per visible "
@@ -671,7 +917,8 @@ def run(torch) -> int:
         "name": "mlstm_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mlstm_scan.cu",
         "replaces": "src/repro/kernels/mlstm_scan.py:73",
-        "launches": xlstm_launches["mlstm_scan"],
+        "launches": launches_of("mlstm_scan")[0],
+        "launches_by_path": launches_of("mlstm_scan")[1],
         "max_abs_err": errs["mlstm_scan"]["bfloat16"],
         "max_abs_err_fp32": errs["mlstm_scan"]["float32"],
         "max_abs_err_state": errs["mlstm_scan_state"]["bfloat16"],
@@ -697,6 +944,44 @@ def run(torch) -> int:
                          "fp32); bytes = q,k,v,i,f,c0 read once + y, "
                          "c_last written; flops = 4*B*S*H*hd^2 (the "
                          "recurrence: k v^T into C and q C per token)",
+    })
+    # mamba_scan at the served shapes and dtype: mamba_apply casts u, dt, b
+    # and c to fp32; the prefill starts from a zero state, a decode step
+    # updates the cache in place.
+    pre = mamba_inputs(150, BATCH, PROMPT, JDI, JN, "float32")
+    step = mamba_inputs(160, BATCH, 1, JDI, JN, "float32", 0.5)
+    mb_pre = mamba_bound(BATCH, PROMPT, JDI, JN)
+    mb_step = mamba_bound(BATCH, 1, JDI, JN)
+    kernels.append({
+        "name": "mamba_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+        "replaces": "src/repro/kernels/mamba_scan.py:55",
+        "launches": launches_of("mamba_scan")[0],
+        "launches_by_path": launches_of("mamba_scan")[1],
+        "max_abs_err": errs["mamba_scan"]["bfloat16"],
+        "max_abs_err_fp32": errs["mamba_scan"]["float32"],
+        "max_abs_err_state": errs["mamba_scan_state"]["bfloat16"],
+        "max_abs_err_state_fp32": errs["mamba_scan_state"]["float32"],
+        "ms": cold_ms(lambda: ops.selective_scan(*pre)),
+        "plain_ms": cold_ms(lambda: ref.mamba_scan_ref(*pre), iters=5,
+                            warmup=1),
+        "bound_ms": mb_pre[0], "bound_by": mb_pre[1],
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes a selective scan",
+        "shape": f"prefill u,dt ({BATCH},{PROMPT},{JDI}) N {JN} fp32, zero "
+                 f"h0",
+        "bytes": mb_pre[2], "flops": mb_pre[3],
+        "decode_ms": cold_ms(lambda: ops.selective_scan(*step,
+                                                        out=step[-1])),
+        "decode_plain_ms": cold_ms(lambda: ref.mamba_scan_ref(*step)),
+        "decode_bound_ms": mb_step[0], "decode_bound_by": mb_step[1],
+        "decode_shape": f"decode u,dt ({BATCH},1,{JDI}) N {JN} fp32, state "
+                        f"updated in place",
+        "decode_bytes": mb_step[2], "decode_flops": mb_step[3],
+        "bound_formula": "max(bytes / 3.35e12 B/s, flops / 67e12 FLOP/s "
+                         "fp32); bytes = u,dt,b,c,a,h0 read once + y, "
+                         "h_last written; flops = 8*B*S*di*N (the "
+                         "recurrence, its exp counted as one operation)",
     })
     del flush
 

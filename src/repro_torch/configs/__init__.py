@@ -10,10 +10,11 @@ from typing import List
 
 from ..models.config import ModelConfig
 
-ARCH_IDS: List[str] = ["llama3_2_1b", "xlstm_125m"]
+ARCH_IDS: List[str] = ["llama3_2_1b", "xlstm_125m", "jamba_v0_1_52b"]
 
 # CLI ids use dashes / dots; module names use underscores.
-ALIASES = {"llama3.2-1b": "llama3_2_1b", "xlstm-125m": "xlstm_125m"}
+ALIASES = {"llama3.2-1b": "llama3_2_1b", "xlstm-125m": "xlstm_125m",
+           "jamba-v0.1-52b": "jamba_v0_1_52b"}
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -1,10 +1,12 @@
 """Load parameters saved by the JAX package into the port's ``LM``.
 
 The JAX parameters arrive as numpy arrays under the ``/``-joined leaf keys
-that ``repro.ckpt.shards._flatten`` writes, e.g. ``embed``, ``final_ln`` and
-``layers/p0/mixer/wq``.  Leaves under ``layers/p{p}`` carry a leading dim
-over the pattern's periods: row ``i`` belongs to layer ``i * period + p``.
-Leaves under ``rem{r}`` belong to layer ``n_periods * period + r``.
+that ``repro.ckpt.shards._flatten`` writes, e.g. ``embed``, ``final_ln``,
+``layers/p0/mixer/wq`` and ``layers/p1/ffn/moe/w_gate``.  Leaves under
+``layers/p{p}`` carry a leading dim over the pattern's periods: row ``i``
+belongs to layer ``i * period + p``.  Leaves under ``rem{r}`` belong to
+layer ``n_periods * period + r``.  The rest of a key is the leaf's path in
+that layer's ``ParamTree``, at any depth.
 
 This module imports no JAX: whoever holds the JAX tree flattens it.
 """
@@ -36,16 +38,28 @@ def params_from_numpy(cfg: ModelConfig, flat: Mapping[str, np.ndarray], *,
     model = LM(cfg, dtype=dtype, device=resolve(device))
     period = len(cfg.pattern)
     targets = {}                    # flat key (+ row) -> (parameter, array)
+
+    def leaf(key: str, li: int, path):
+        node = model.layers[li]
+        for name in path:
+            if name not in node:
+                raise KeyError(f"unknown parameter key {key!r}")
+            node = node[name]
+        if not isinstance(node, torch.nn.Parameter):
+            raise KeyError(f"{key!r} names a subtree, not a parameter")
+        return node
+
     for key, arr in flat.items():
         parts = key.split("/")
         if parts[0] == "layers":
-            p, part, name = int(parts[1][1:]), parts[2], parts[3]
+            p = int(parts[1][1:])
             for i in range(cfg.n_periods):
-                targets[f"{key}[{i}]"] = (
-                    model.layers[i * period + p][part][name], arr[i])
+                targets[f"{key}[{i}]"] = (leaf(key, i * period + p,
+                                               parts[2:]),
+                                          arr[i])
         elif parts[0].startswith("rem"):
             li = cfg.n_periods * period + int(parts[0][3:])
-            targets[key] = (model.layers[li][parts[1]][parts[2]], arr)
+            targets[key] = (leaf(key, li, parts[1:]), arr)
         else:
             if len(parts) != 1 or not hasattr(model, key):
                 raise KeyError(f"unknown parameter key {key!r}")

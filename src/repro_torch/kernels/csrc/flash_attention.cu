@@ -15,10 +15,17 @@
 // meet); a later version moves the two products onto wgmma.
 //
 // Design:
-//   * One block per (q tile of 64 rows, q head, batch); one thread owns one
-//     query row, holding its scaled q, its fp32 accumulator and the row's
-//     running max and sum in registers.  That caps the head dim at 64 (hd
-//     16, 32, 64 are built); wider heads need the rows split over threads.
+//   * One block per (q tile of 64 rows, q head, batch).  At head dims 16,
+//     32 and 64 one thread owns one query row, holding its scaled q, its
+//     fp32 accumulator and the row's running max and sum in registers.  A
+//     wider head would not fit in 255 registers (q and acc alone are 2 hd
+//     floats), so from hd 128 a row is split over LANES = hd / 32
+//     neighbouring lanes of a warp: each lane holds 32 dims of q and of
+//     the accumulator (dims sub, sub + LANES, ..., so the lanes of a row
+//     read neighbouring shared-memory words), a score is summed over the
+//     lanes with __shfl_xor_sync, and the butterfly leaves the same sum,
+//     hence the same running max and sum, on every lane of the row.  hd
+//     128 runs 4 lanes a row, 256 threads a block.
 //   * The TPU grid's sequential KV axis becomes a loop over KV tiles inside
 //     the block.  Each tile is staged once in shared memory as fp32 and read
 //     by every thread of the block at the same address (a broadcast), so a
@@ -38,7 +45,7 @@
 
 namespace {
 
-constexpr int BQ = 64;              // query rows per block, one per thread
+constexpr int BQ = 64;              // query rows per block
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -68,27 +75,29 @@ struct AttnArgs {
   float softcap, scale;
 };
 
-template <typename T, int HD, int BK>
-__global__ void __launch_bounds__(BQ) attn_kernel(AttnArgs a) {
+template <typename T, int HD, int BK, int LANES>
+__global__ void __launch_bounds__(BQ * LANES) attn_kernel(AttnArgs a) {
+  constexpr int DL = HD / LANES;      // dims of q and acc held per lane
   __shared__ __align__(16) float ks[BK][HD];
   __shared__ __align__(16) float vs[BK][HD];
 
   const int qi = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / a.g;
-  const int row = qi * BQ + threadIdx.x;
+  const int sub = threadIdx.x % LANES;    // this lane's dims: sub + LANES*i
+  const int row = qi * BQ + threadIdx.x / LANES;
   const bool live = row < a.Sq;
   const int q_pos = row + a.q_offset;
   const T* k = static_cast<const T*>(a.k) + b * a.k_sb + hk * a.k_sh;
   const T* v = static_cast<const T*>(a.v) + b * a.v_sb + hk * a.v_sh;
 
-  float q[HD], acc[HD];
+  float q[DL], acc[DL];
   {
     const T* qr = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh +
                   (long long)row * a.q_ss;
 #pragma unroll
-    for (int d = 0; d < HD; ++d) {
-      q[d] = live ? to_f(qr[d]) * a.scale : 0.f;
-      acc[d] = 0.f;
+    for (int i = 0; i < DL; ++i) {
+      q[i] = live ? to_f(qr[i * LANES + sub]) * a.scale : 0.f;
+      acc[i] = 0.f;
     }
   }
   float m = NEG_INF, l = 0.f;
@@ -105,7 +114,7 @@ __global__ void __launch_bounds__(BQ) attn_kernel(AttnArgs a) {
 
   for (int t0 = kv_begin; t0 < kv_end; t0 += BK) {
     __syncthreads();  // every thread is done with the previous tile
-    for (int i = threadIdx.x; i < BK * HD; i += BQ) {
+    for (int i = threadIdx.x; i < BK * HD; i += BQ * LANES) {
       const int j = i / HD, d = i - j * HD, t = t0 + j;
       ks[j][d] = t < a.Skv ? to_f(k[t * a.k_ss + d]) : 0.f;
       vs[j][d] = t < a.Skv ? to_f(v[t * a.v_ss + d]) : 0.f;
@@ -118,7 +127,11 @@ __global__ void __launch_bounds__(BQ) attn_kernel(AttnArgs a) {
     for (int j = 0; j < BK; ++j) {
       float x = 0.f;
 #pragma unroll
-      for (int d = 0; d < HD; ++d) x = fmaf(q[d], ks[j][d], x);
+      for (int i = 0; i < DL; ++i) x = fmaf(q[i], ks[j][i * LANES + sub], x);
+#pragma unroll
+      for (int off = 1; off < LANES; off <<= 1) {
+        x += __shfl_xor_sync(0xffffffffu, x, off);
+      }
       if (a.softcap > 0.f) x = a.softcap * tanhf(x / a.softcap);
       const int kp = t0 + j;
       bool keep = kp < a.kv_lim;
@@ -132,13 +145,15 @@ __global__ void __launch_bounds__(BQ) attn_kernel(AttnArgs a) {
     const float alpha = expf(m - m_new);
     l *= alpha;
 #pragma unroll
-    for (int d = 0; d < HD; ++d) acc[d] *= alpha;
+    for (int i = 0; i < DL; ++i) acc[i] *= alpha;
 #pragma unroll
     for (int j = 0; j < BK; ++j) {
       const float p = expf(s[j] - m_new);
       l += p;
 #pragma unroll
-      for (int d = 0; d < HD; ++d) acc[d] = fmaf(p, vs[j][d], acc[d]);
+      for (int i = 0; i < DL; ++i) {
+        acc[i] = fmaf(p, vs[j][i * LANES + sub], acc[i]);
+      }
     }
     m = m_new;
   }
@@ -148,15 +163,18 @@ __global__ void __launch_bounds__(BQ) attn_kernel(AttnArgs a) {
            (long long)row * a.o_ss;
     const float denom = fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int d = 0; d < HD; ++d) o[d] = from_f<T>(acc[d] / denom);
+    for (int i = 0; i < DL; ++i) {
+      o[i * LANES + sub] = from_f<T>(acc[i] / denom);
+    }
   }
 }
 
 template <typename T, int HD>
 int launch_hd(const AttnArgs& a, int B, int Hq, cudaStream_t stream) {
   constexpr int BK = 32;              // keys per tile
+  constexpr int LANES = HD <= 64 ? 1 : HD / 32;   // lanes per query row
   const dim3 grid((a.Sq + BQ - 1) / BQ, Hq, B);
-  attn_kernel<T, HD, BK><<<grid, BQ, 0, stream>>>(a);
+  attn_kernel<T, HD, BK, LANES><<<grid, BQ * LANES, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -166,6 +184,7 @@ int launch(const AttnArgs& a, int B, int Hq, int hd, cudaStream_t stream) {
     case 16: return launch_hd<T, 16>(a, B, Hq, stream);
     case 32: return launch_hd<T, 32>(a, B, Hq, stream);
     case 64: return launch_hd<T, 64>(a, B, Hq, stream);
+    case 128: return launch_hd<T, 128>(a, B, Hq, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

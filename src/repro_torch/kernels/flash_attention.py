@@ -19,7 +19,7 @@ import torch
 from . import _build
 
 NAME = "flash_attention"
-HEAD_DIMS = (16, 32, 64)      # instantiated in the CUDA source
+HEAD_DIMS = (16, 32, 64, 128)   # instantiated in the CUDA source
 DTYPES = (torch.float32, torch.bfloat16)
 
 launches = 0        # kernel launches since the last reset (see ops)

@@ -1,8 +1,9 @@
 """Dispatch between the CUDA kernels and their plain PyTorch versions.
 
 A CPU tensor goes to the plain version (``ref.attention_ref``,
-``ref.mlstm_ref``); a CUDA tensor goes to the kernel, which launches or
-raises.  Nothing here catches a kernel's failure and falls back.
+``ref.mamba_scan_ref``, ``ref.mlstm_ref``); a CUDA tensor goes to the
+kernel, which launches or raises.  Nothing here catches a kernel's failure
+and falls back.
 
 ``attention`` is the model-facing entry with the signature and
 ``(B,S,N,hd)`` layout of ``layers.attention``: a causal call (prefill,
@@ -16,7 +17,8 @@ from typing import Dict, Optional
 
 import torch
 
-from . import decode_attention, flash_attention as _fa, mlstm_scan, ref
+from . import decode_attention, flash_attention as _fa, mamba_scan, \
+    mlstm_scan, ref
 
 
 def _on_cpu(t) -> bool:
@@ -58,6 +60,19 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
     return o.transpose(1, 2)
 
 
+def selective_scan(u, dt, a, b, c, h0, *, out=None):
+    """The TPU kernel ``mamba_scan``'s contract: u,dt (B,S,di), a (di,N)
+    fp32, b,c (B,S,N), h0 (B,di,N) fp32 -> (y (B,S,di) in u's dtype,
+    h_last fp32).  ``out``, when given, receives h_last (it may be h0
+    itself) and is returned."""
+    if _on_cpu(u):
+        y, h_last = ref.mamba_scan_ref(u, dt, a, b, c, h0)
+        if out is not None:
+            h_last = out.copy_(h_last)
+        return y.to(u.dtype), h_last
+    return mamba_scan.mamba_scan(u, dt, a, b, c, h0, out=out)
+
+
 def mlstm(q, k, v, i_gate, f_gate, c0, *, chunk=mlstm_scan.DEFAULT_CHUNK,
           out=None):
     """The TPU kernel ``mlstm_scan``'s contract: q,k,v (B,S,H,hd), i,f
@@ -75,7 +90,7 @@ def mlstm(q, k, v, i_gate, f_gate, c0, *, chunk=mlstm_scan.DEFAULT_CHUNK,
                                  out=out)
 
 
-_KERNELS = (_fa, decode_attention, mlstm_scan)
+_KERNELS = (_fa, decode_attention, mlstm_scan, mamba_scan)
 
 
 def launch_counts() -> Dict[str, int]:

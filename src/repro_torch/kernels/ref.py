@@ -2,8 +2,9 @@
 sequential recurrences).
 
 ``attention_ref`` is the plain version that both attention kernels are held
-against, ``mlstm_ref`` that of ``mlstm_scan``: on the CPU ``ops`` uses them,
-and ``chip_smoke.py`` compares each CUDA kernel with them on the card.
+against, ``mamba_scan_ref`` that of ``mamba_scan`` and ``mlstm_ref`` that of
+``mlstm_scan``: on the CPU ``ops`` uses them, and ``chip_smoke.py`` compares
+each CUDA kernel with them on the card.
 """
 from __future__ import annotations
 
@@ -35,6 +36,24 @@ def attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
     s = s.masked_fill(~keep, float("-inf"))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, vv).to(q.dtype)
+
+
+def mamba_scan_ref(u, dt, a, b, c, h0):
+    """Sequential selective scan, all fp32.  u,dt: (B,S,di)  a: (di,N)
+    b,c: (B,S,N)  h0: (B,di,N)  ->  y (B,S,di) fp32, h_last (B,di,N).
+
+    h_t = exp(dt_t·a) ⊙ h_{t-1} + (dt_t·b_t)·u_t,   y_t = h_t · c_t.
+    """
+    u, dt, b, c = (t.float() for t in (u, dt, b, c))
+    a = a.float()
+    h = h0.float()
+    ys = []
+    for t in range(u.shape[1]):
+        dt_t = dt[:, t, :, None]                                # (B,di,1)
+        h = torch.exp(dt_t * a) * h + dt_t * b[:, t, None, :] * \
+            u[:, t, :, None]
+        ys.append(torch.einsum("bdn,bn->bd", h, c[:, t]))
+    return torch.stack(ys, dim=1), h
 
 
 def mlstm_ref(q, k, v, i_gate, f_gate, c0, n0):

@@ -1,9 +1,12 @@
 """Profile one served wave on the card with torch.profiler.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile [--arch A] [--out DIR]
+    PYTHONPATH=src python -m repro_torch.launch.profile [--arch A]
+        [--n-layers L] [--out DIR]
 
-(``A`` defaults to ``llama3.2-1b``, e.g. ``xlstm-125m``; ``DIR`` to
-``build/profile``.)
+(``A`` defaults to ``llama3.2-1b``, e.g. ``xlstm-125m`` or
+``jamba-v0.1-52b``; ``L`` cuts the depth to its first L layers, as
+``--arch jamba-v0.1-52b --n-layers 16`` must to fit one 80 GB card;
+``DIR`` defaults to ``build/profile``.)
 
 Serves the same wave as chip_smoke.py (4 requests, 256-token prompts, 32
 new tokens, bf16, random weights from seed 0), then profiles a second wave
@@ -14,6 +17,7 @@ time.  The profiler's table goes to ``DIR/serve_profile.txt``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 from pathlib import Path
@@ -44,10 +48,16 @@ def _busy_ms(events) -> float:
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="llama3.2-1b")
+    ap.add_argument("--n-layers", type=int, default=0,
+                    help="cut the depth to this many layers (0: as published)")
     ap.add_argument("--out", default="build/profile")
     args = ap.parse_args(argv)
     dev = resolve("cuda")
     cfg = get_config(args.arch)
+    if args.n_layers:
+        print(f"[profile] {cfg.name}: depth cut from {cfg.n_layers} to "
+              f"{args.n_layers} layers, widths as published")
+        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
     model = init_model(cfg, 0, dtype=torch.bfloat16, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
@@ -76,7 +86,8 @@ def main(argv=None):
             (e.time_range.end - e.time_range.start) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     print(json.dumps({
-        "device": torch.cuda.get_device_name(0), "wall_ms": wall_ms,
+        "device": torch.cuda.get_device_name(0), "arch": cfg.name,
+        "n_layers": cfg.n_layers, "wall_ms": wall_ms,
         "device_busy_ms": busy, "idle_share": 1 - busy / wall_ms,
         "kernel_launches": len(kernels),
         "top_kernels_ms": [[n[:80], ms] for n, ms in top]}))

@@ -1,5 +1,6 @@
 """Decoder blocks: the port of ``repro.models.blocks`` for the ``attn``
-kind with a dense FFN, and the xLSTM kinds ``mlstm`` and ``slstm``.
+kind, the ``mamba`` kind, the xLSTM kinds ``mlstm`` and ``slstm``, and the
+FFN, dense or MoE.
 
 Every kind implements
   specs(cfg)                    -> {name: PSpec} for one layer
@@ -11,7 +12,8 @@ The JAX package updates its caches functionally and returns new ones.  The
 port writes into preallocated caches in place: the prefill writes the
 prompt's K/V at ``[:, :S]`` of a zeroed ``(B, T, Nkv, hd)`` cache (the JAX
 package pads to ``max_len``), a decode step writes at ``[:, pos:pos+S]``;
-the recurrent kinds ``copy_`` their new state into the fp32 cache tensors.
+the recurrent kinds ``copy_`` their new state into the cache tensors (or
+have the kernel write it there).
 The LM hands each layer views of the stacked cache, so returning a fresh
 tensor instead would leave the cache as it was.
 """
@@ -27,7 +29,9 @@ import torch.nn.functional as F
 from ..kernels import ops
 from .config import ModelConfig
 from .layers import PSpec, attention, dense, rms_norm, rotate, swiglu
+from .moe import moe_apply, moe_specs
 
+SSM_CHUNK = 64      # mamba: tokens per associative-scan chunk (plain scan)
 MLSTM_CHUNK = 256   # mLSTM: chunkwise-parallel block size of the plain cell
 
 ATTN_KINDS = ("attn", "attn_local")
@@ -36,8 +40,6 @@ FFN_KINDS = ATTN_KINDS + ("mamba",)     # the kinds that carry an FFN
 # Where each block kind the port does not run yet is queued.
 _NOT_PORTED = {
     "attn_local": "ROADMAP Queue 1 item 5 (local attention, gemma)",
-    "mamba": "ROADMAP Queue 1 item 3 (the Jamba slice, mamba_scan)",
-    "moe": "ROADMAP Queue 1 item 3 (the Jamba slice, MoE single-shard)",
     "mrope": "ROADMAP Queue 1 item 6 (other input modes, M-RoPE)",
 }
 
@@ -121,6 +123,123 @@ def attn_apply(cfg: ModelConfig, p: Mapping[str, torch.Tensor], x, ctx: Ctx):
     out = dense(o.reshape(B, S, nq * hd), p["wo"])
     if cfg.post_norm:
         out = rms_norm(out, p["post_ln"], cfg.norm_eps)
+    return out, cache
+
+
+# ===========================================================================
+# Mamba (selective SSM): Jamba's mixer
+# ===========================================================================
+def mamba_specs(cfg: ModelConfig) -> Dict[str, PSpec]:
+    d = cfg.d_model
+    di = cfg.ssm_expand * d
+    n = cfg.ssm_state
+    dt_rank = max(1, d // 16)
+    return {
+        "ln": PSpec((d,), init="zeros"),
+        "w_in": PSpec((d, 2 * di)),
+        "conv": PSpec((cfg.ssm_conv, di), scale=0.1),
+        "w_bcdt": PSpec((di, 2 * n + dt_rank)),
+        "w_dt": PSpec((dt_rank, di), scale=0.5),
+        "dt_bias": PSpec((di,), init="zeros"),
+        "a_log": PSpec((di, n), init="zeros"),
+        "d_skip": PSpec((di,), init="ones"),
+        "w_out": PSpec((di, d)),
+    }
+
+
+def mamba_cache_shape(cfg: ModelConfig, batch: int, _max_len: int):
+    """The conv window in the activations' dtype; the SSM state fp32."""
+    di = cfg.ssm_expand * cfg.d_model
+    return {
+        "conv": PSpec((batch, cfg.ssm_conv - 1, di), init="zeros"),
+        "ssm": PSpec((batch, di, cfg.ssm_state), init="zeros",
+                     dtype=torch.float32),
+    }
+
+
+def _ssm_scan(u, dt, a, b, c, h0):
+    """Chunked selective scan (the plain version).  u,dt:(B,S,di)
+    b,c:(B,S,N)  a:(di,N)  h0:(B,di,N).  Returns (y (B,S,di), h_last).
+
+    As in the JAX package: the sequence is zero-padded to whole chunks of
+    ``SSM_CHUNK`` (dt = 0 is the identity update) and a loop over chunks
+    carries the (B,di,N) state; inside a chunk the linear recurrence
+    h_t = Ā_t h_{t-1} + B̄_t u_t runs as an inclusive scan of the pairs
+    (Ā, B̄) under (a_l, b_l)∘(a_r, b_r) = (a_l a_r, b_l a_r + b_r), here in
+    log2(chunk) doubling steps where ``jax.lax.associative_scan`` takes
+    another tree, so sums are rounded in another order.
+    """
+    B, S, di = u.shape
+    n = a.shape[-1]
+    c_len = min(SSM_CHUNK, S)
+    n_chunks = -(-S // c_len)
+    pad = n_chunks * c_len - S
+    u_, dt_, b_, c_ = (F.pad(t, (0, 0, 0, pad)) for t in (u, dt, b, c))
+    abar = torch.exp(dt_[..., None] * a)                       # (B,S',di,N)
+    bbar = dt_[..., None] * b_[:, :, None, :] * u_[..., None]  # (B,S',di,N)
+    h = h0
+    ys = []
+    for ci in range(n_chunks):
+        sl = slice(ci * c_len, (ci + 1) * c_len)
+        ab, bb = abar[:, sl], bbar[:, sl]                      # (B,c,di,N)
+        shift = 1
+        while shift < c_len:        # row t takes in row t - shift
+            a_cur = ab[:, shift:]
+            bb = torch.cat([bb[:, :shift],
+                            bb[:, :-shift] * a_cur + bb[:, shift:]], dim=1)
+            ab = torch.cat([ab[:, :shift], ab[:, :-shift] * a_cur], dim=1)
+            shift *= 2
+        hs = bb + ab * h[:, None]                              # (B,c,di,N)
+        ys.append(torch.einsum("bcdn,bcn->bcd", hs, c_[:, sl]))
+        h = hs[:, -1]
+    y = torch.cat(ys, dim=1)[:, :S]
+    return y, h
+
+
+def mamba_apply(cfg: ModelConfig, p: Mapping[str, torch.Tensor], x,
+                ctx: Ctx):
+    B, S, D = x.shape
+    di = cfg.ssm_expand * D
+    n = cfg.ssm_state
+    K = cfg.ssm_conv
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    xs, z = dense(h, p["w_in"]).chunk(2, dim=-1)               # (B,S,di)
+
+    # Causal conv1d over time (kernel ssm_conv).
+    cache = ctx.cache
+    if ctx.mode == "decode":
+        xin = torch.cat([cache["conv"], xs], dim=1)            # (B,K-1+S,di)
+    else:
+        xin = F.pad(xs, (0, 0, K - 1, 0))
+    new_conv = xin[:, xin.shape[1] - (K - 1):]
+    xc = sum(xin[:, i:i + S] * p["conv"][i] for i in range(K))
+    xc = F.silu(xc)
+
+    bcdt = dense(xc, p["w_bcdt"])
+    b_in, c_in, dt_in = torch.split(bcdt, [n, n, bcdt.shape[-1] - 2 * n],
+                                    dim=-1)
+    dt = F.softplus(dense(dt_in, p["w_dt"]) + p["dt_bias"])
+    a = -torch.exp(p["a_log"].float())
+
+    if ctx.mode == "decode":
+        h0 = cache["ssm"]
+    else:
+        h0 = torch.zeros((B, di, n), dtype=torch.float32, device=x.device)
+    u, dt, b_in, c_in = (t.float() for t in (xc, dt, b_in, c_in))
+    if ctx.plain:
+        y, h_last = _ssm_scan(u, dt, a, b_in, c_in, h0)
+    else:
+        # The kernel writes the state straight into the cache (each thread
+        # reads its h0 before it writes it, so h0 may be that same tensor).
+        y, h_last = ops.selective_scan(
+            u, dt, a, b_in, c_in, h0,
+            out=None if cache is None else cache["ssm"])
+    y = (y.to(x.dtype) + xc * p["d_skip"]) * F.silu(z)
+    out = dense(y, p["w_out"])
+    if cache is not None and ctx.mode in ("decode", "prefill"):
+        cache["conv"].copy_(new_conv)
+        if h_last is not cache["ssm"]:
+            cache["ssm"].copy_(h_last)
     return out, cache
 
 
@@ -317,32 +436,35 @@ def slstm_apply(cfg: ModelConfig, p: Mapping[str, torch.Tensor], x,
 
 
 # ===========================================================================
-# FFN
+# FFN / MoE
 # ===========================================================================
-def ffn_specs(cfg: ModelConfig, is_moe: bool) -> Dict[str, PSpec]:
-    if is_moe:
-        raise not_ported("moe")
+def ffn_specs(cfg: ModelConfig, is_moe: bool) -> Dict[str, Any]:
+    """{name: PSpec}; an MoE layer nests its specs under ``moe``."""
     d = cfg.d_model
-    s = {
-        "ln": PSpec((d,), init="zeros"),
-        "w_gate": PSpec((d, cfg.d_ff)),
-        "w_up": PSpec((d, cfg.d_ff)),
-        "w_down": PSpec((cfg.d_ff, d)),
-    }
+    s: Dict[str, Any] = {"ln": PSpec((d,), init="zeros")}
+    if is_moe:
+        s["moe"] = moe_specs(cfg)
+    else:
+        s.update({
+            "w_gate": PSpec((d, cfg.d_ff)),
+            "w_up": PSpec((d, cfg.d_ff)),
+            "w_down": PSpec((cfg.d_ff, d)),
+        })
     if cfg.post_norm:
         s["post_ln"] = PSpec((d,), init="zeros")
     return s
 
 
-def ffn_apply(cfg: ModelConfig, p: Mapping[str, torch.Tensor], x,
-              is_moe: bool):
-    if is_moe:
-        raise not_ported("moe")
+def ffn_apply(cfg: ModelConfig, p: Mapping[str, Any], x, is_moe: bool):
+    """Returns (out, aux): the router's aux loss for an MoE layer, else 0."""
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    out = swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+    if is_moe:
+        out, aux = moe_apply(cfg, p["moe"], h)
+    else:
+        out, aux = swiglu(h, p["w_gate"], p["w_up"], p["w_down"]), 0.0
     if cfg.post_norm:
         out = rms_norm(out, p["post_ln"], cfg.norm_eps)
-    return out, 0.0
+    return out, aux
 
 
 # ===========================================================================
@@ -350,6 +472,7 @@ def ffn_apply(cfg: ModelConfig, p: Mapping[str, torch.Tensor], x,
 # ===========================================================================
 MIXERS = {
     "attn": (attn_specs, attn_apply, attn_cache_shape),
+    "mamba": (mamba_specs, mamba_apply, mamba_cache_shape),
     "mlstm": (mlstm_specs, mlstm_apply, mlstm_cache_shape),
     "slstm": (slstm_specs, slstm_apply, slstm_cache_shape),
 }

@@ -1,9 +1,10 @@
 """Decoder LM: embeddings → layer loop → head (port of ``repro.models.lm``).
 
-``LM`` is an ``nn.Module`` whose ``layers`` hold one ``nn.ModuleDict`` per
-layer (``mixer`` and ``ffn`` parameter dicts, named as the JAX leaves).  The
-JAX package's ``lax.scan`` over stacked periods becomes a plain loop.  The
-parameters do not require gradients: this slice runs inference only.
+``LM`` is an ``nn.Module`` whose ``layers`` hold one ``ParamTree`` per
+layer: ``mixer`` and ``ffn`` subtrees whose parameters are named and nested
+as the JAX leaves (an MoE FFN holds ``ffn/moe/router`` and the experts).
+The JAX package's ``lax.scan`` over stacked periods becomes a plain loop.
+The parameters do not require gradients: the port runs inference only.
 
 Entry points, as in the JAX package:
   forward(batch)                 train-mode logits + masked shifted NLL
@@ -26,11 +27,34 @@ from .layers import PSpec, dense, init_tensor, rms_norm, rope_cos_sin, \
     softcap, text_positions
 
 
-def _param_dict(specs: Dict[str, PSpec], dtype, device) -> nn.ParameterDict:
-    return nn.ParameterDict({
-        name: nn.Parameter(torch.empty(s.shape, dtype=dtype, device=device),
-                           requires_grad=False)
-        for name, s in specs.items()})
+class ParamTree(nn.Module):
+    """Parameters nested as a spec dict is: a ``PSpec`` becomes a parameter,
+    a dict a subtree.  ``tree[name]`` reads either, ``name in tree`` asks."""
+
+    def __init__(self, specs: Dict[str, Any], dtype, device) -> None:
+        super().__init__()
+        for name, s in specs.items():
+            if isinstance(s, PSpec):
+                self.register_parameter(name, nn.Parameter(
+                    torch.empty(s.shape, dtype=dtype, device=device),
+                    requires_grad=False))
+            else:
+                self.add_module(name, ParamTree(s, dtype, device))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
+
+
+def _leaves(tree: ParamTree, specs: Dict[str, Any]):
+    """(parameter, PSpec) pairs of a subtree, depth first, in spec order."""
+    for name, s in specs.items():
+        if isinstance(s, PSpec):
+            yield tree[name], s
+        else:
+            yield from _leaves(tree[name], s)
 
 
 def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
@@ -63,13 +87,11 @@ class LM(nn.Module):
                 self.register_parameter(name, nn.Parameter(
                     torch.empty(s.shape, dtype=dtype, device=dev),
                     requires_grad=False))
-        self.layers = nn.ModuleList(
-            nn.ModuleDict({part: _param_dict(s, dtype, dev)
-                           for part, s in layer.items()})
-            for layer in self.specs["layers"])
-        # The plain PyTorch versions (attention, the chunkwise mLSTM cell)
-        # instead of the kernels: the reference that chip_smoke.py holds the
-        # kernel path against on the card.
+        self.layers = nn.ModuleList(ParamTree(layer, dtype, dev)
+                                    for layer in self.specs["layers"])
+        # The plain PyTorch versions (attention, the chunked selective scan,
+        # the chunkwise mLSTM cell) instead of the kernels: the reference
+        # that chip_smoke.py holds the kernel path against on the card.
         self.plain_kernels = False
 
     def named_specs(self):
@@ -78,35 +100,35 @@ class LM(nn.Module):
             if name != "layers":
                 yield getattr(self, name), s
         for layer, layer_spec in zip(self.layers, self.specs["layers"]):
-            for part, specs in layer_spec.items():
-                for name, s in specs.items():
-                    yield layer[part][name], s
+            yield from _leaves(layer, layer_spec)
 
     # -- pieces -------------------------------------------------------------
     def embed_inputs(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         x = self.embed[batch["tokens"]]
         return x * torch.tensor(self.cfg.embed_scale, dtype=x.dtype)
 
+    def rope(self, positions):
+        """The rope tables of ``positions`` for the attention layers; None
+        when the model has none (only attention layers rotate)."""
+        cfg = self.cfg
+        if any(k in ATTN_KINDS for k in cfg.pattern):
+            return rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
+        return None
+
     def run_layers(self, x, *, mode: str, positions, cache=None,
                    pos_offset: int = 0, max_len: int = 0):
         """Apply every layer; writes the cache in place.  Returns (x, aux)."""
         cfg = self.cfg
-        period = len(cfg.pattern)
         aux_total = 0.0
-        rope = None                 # only attention layers rotate
-        if any(k in ATTN_KINDS for k in cfg.pattern):
-            rope = rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
+        rope = self.rope(positions)
         for li, kind in enumerate(cfg.full_pattern):
-            # As the JAX scan body does, a layer inside the periods takes
-            # the MoE placement of its pattern position.
-            in_periods = li < cfg.n_periods * period
-            is_moe = cfg.is_moe_layer(li % period if in_periods else li)
             ctx = Ctx(mode=mode, rope=rope,
                       cache=None if cache is None else layer_cache(
                           cfg, cache, li),
                       pos_offset=pos_offset, max_len=max_len,
                       plain=self.plain_kernels)
-            x, _, a = layer_apply(cfg, kind, is_moe, self.layers[li], x, ctx)
+            x, _, a = layer_apply(cfg, kind, layer_is_moe(cfg, li),
+                                  self.layers[li], x, ctx)
             aux_total = aux_total + a
         return x, aux_total
 
@@ -200,6 +222,14 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> Dict[str, Any]:
         kind = cfg.full_pattern[cfg.n_periods * period + r]
         out[f"rem{r}"] = mixer(kind)[2](cfg, batch, max_len)
     return out
+
+
+def layer_is_moe(cfg: ModelConfig, li: int) -> bool:
+    """Whether layer ``li``'s FFN is an MoE.  As the JAX scan body does, a
+    layer inside the periods takes the placement of its pattern position."""
+    period = len(cfg.pattern)
+    in_periods = li < cfg.n_periods * period
+    return cfg.is_moe_layer(li % period if in_periods else li)
 
 
 def layer_cache(cfg: ModelConfig, cache, li: int) -> Dict[str, Any]:

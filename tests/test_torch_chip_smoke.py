@@ -77,6 +77,23 @@ def test_mlstm_bound_counts_the_served_calls():
     assert ms == pytest.approx(nbytes / 3.35e12 * 1e3)
 
 
+def test_mamba_bound_counts_the_served_calls():
+    """Jamba's mixer as served, fp32: u, dt and y are 33.5 MB each at the
+    prefill shape, the state 2.1 MB read and 2.1 MB written; both calls
+    are bound by bytes."""
+    ms, by, nbytes, flops = chip_smoke.mamba_bound(4, 256, 8192, 16)
+    assert nbytes == 4 * (3 * 4 * 256 * 8192 + 2 * 4 * 256 * 16) \
+        + 4 * 8192 * 16 + 2 * 4 * 4 * 8192 * 16 == 105_512_960
+    assert flops == 8 * 4 * 256 * 8192 * 16
+    assert by == "bytes" and ms == pytest.approx(nbytes / 3.35e12 * 1e3)
+    assert ms == pytest.approx(0.0315, abs=1e-4)
+    assert flops / 67e12 * 1e3 < ms              # the exps and flops fit
+    ms, by, nbytes, _ = chip_smoke.mamba_bound(4, 1, 8192, 16)
+    assert nbytes == 4 * (3 * 4 * 8192 + 2 * 4 * 16) + 4 * 8192 * 16 \
+        + 2 * 4 * 4 * 8192 * 16 == 5_112_320
+    assert by == "bytes" and ms == pytest.approx(0.00153, abs=1e-5)
+
+
 def hold_smoke_xlstm(monkeypatch, dtype, tol):
     """``layer_parity`` on the smoke-size xLSTM on the CPU (where ``ops``
     takes the plain sequential recurrence) passes, and fails when the
@@ -110,3 +127,48 @@ def test_layer_parity_runs_and_catches_a_wrong_state(monkeypatch):
 def test_layer_parity_holds_the_bf16_model(monkeypatch):
     """The bf16 model, as served, at the bf16 kernel tolerance."""
     hold_smoke_xlstm(monkeypatch, torch.bfloat16, chip_smoke.TOL["bfloat16"])
+
+
+def hold_smoke_jamba(monkeypatch, dtype, tol):
+    """``layer_parity`` on the smoke-size Jamba (mamba, attention with
+    rope, dense FFN and MoE layers) on the CPU passes, the expert choices
+    of both paths agree, and a wrong selective scan on the kernel path
+    fails it."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_model, smoke
+
+    model = init_model(smoke(get_config("jamba-v0.1-52b")), 0, dtype=dtype,
+                       device="cpu")
+    prompts = torch.randint(0, 512, (2, 12),
+                            generator=torch.Generator().manual_seed(0))
+    worst = chip_smoke.layer_parity("jamba smoke", model, prompts, tol=tol)
+    assert 0.0 <= worst["mixer_rel"] <= tol
+    assert worst["cache"] <= chip_smoke.TOL["bfloat16"]
+    with chip_smoke.recorded_routes(model) as routes:
+        for plain in (False, True):
+            model.plain_kernels = plain
+            model.prefill({"tokens": prompts}, 16)
+        model.plain_kernels = False
+    n, total = routes.differ()
+    assert total == 8 * 2 * 12                   # 8 MoE layers, 24 tokens
+    # fp32 rounding moves no choice here; bf16 rounding of the mamba
+    # outputs moves a few between the free-running paths.
+    assert n == 0 if dtype == torch.float32 else n < total // 10
+
+    real = ops.selective_scan
+
+    def leaky(u, dt, a, b, c, h0, **kw):
+        return real(u, dt, a * 1.05, b, c, h0, **kw)
+
+    monkeypatch.setattr(ops, "selective_scan", leaky)
+    with pytest.raises(RuntimeError, match="check failed"):
+        chip_smoke.layer_parity("jamba smoke", model, prompts, tol=tol)
+
+
+def test_layer_parity_holds_jamba(monkeypatch):
+    hold_smoke_jamba(monkeypatch, torch.float32, chip_smoke.MODEL_TOL)
+
+
+def test_layer_parity_holds_the_bf16_jamba(monkeypatch):
+    hold_smoke_jamba(monkeypatch, torch.bfloat16, chip_smoke.TOL["bfloat16"])

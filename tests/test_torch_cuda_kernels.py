@@ -8,8 +8,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from chip_smoke import (ATTN_SWEEP, DECODE_SWEEP, MLSTM_C_TOL,  # noqa: E402
-                        MLSTM_SWEEP, TOL)
+from chip_smoke import (ATTN_SWEEP, DECODE_SWEEP, MAMBA_H_TOL,  # noqa: E402
+                        MAMBA_SWEEP, MLSTM_C_TOL, MLSTM_SWEEP, TOL)
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -83,6 +83,81 @@ def test_mlstm_scan_matches_ref(case, dtype, cuda):
                                atol=MLSTM_C_TOL[dtype])
 
 
+def mamba_inputs(seed, B, S, di, N, dtype, device, h0_scale=0.0):
+    """u, dt, a, b, c, h0 as tests/test_kernels.py makes them."""
+    u = randn(seed, (B, S, di), dtype, device)
+    dt = torch.nn.functional.softplus(
+        randn(seed + 1, (B, S, di), "float32", device)).to(DT[dtype])
+    a = -torch.exp(randn(seed + 2, (di, N), "float32", device) * 0.5)
+    b = randn(seed + 3, (B, S, N), dtype, device)
+    c = randn(seed + 4, (B, S, N), dtype, device)
+    h0 = randn(seed + 5, (B, di, N), "float32", device) * h0_scale
+    return u, dt, a, b, c, h0
+
+
+def hold_mamba(inputs, dtype, out=None):
+    ops.reset_launch_counts()
+    y, h = ops.selective_scan(*inputs, out=out)
+    assert ops.launch_counts()["mamba_scan"] == 1
+    u = inputs[0]
+    assert y.dtype == u.dtype and y.shape == u.shape
+    assert h.dtype == torch.float32
+    want_y, want_h = ref.mamba_scan_ref(*inputs)
+    torch.testing.assert_close(y.float(), want_y, rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    torch.testing.assert_close(h, want_h, rtol=MAMBA_H_TOL, atol=MAMBA_H_TOL)
+    return y, h
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", MAMBA_SWEEP)
+def test_mamba_scan_matches_ref(case, dtype, cuda):
+    B, S, di, N, _ = case
+    hold_mamba(mamba_inputs(40, B, S, di, N, dtype, cuda, 0.3), dtype)
+
+
+@pytest.mark.parametrize("shape", [(4, 256, 8192, 16), (4, 1, 8192, 16)],
+                         ids=["prefill", "decode"])
+def test_mamba_scan_serving_shapes(shape, cuda):
+    """Jamba's mixer as served, fp32: the prefill from a zero state, a
+    decode step updating a nonzero state in place."""
+    B, S, di, N = shape
+    u, dt, a, b, c, h0 = mamba_inputs(50, B, S, di, N, "float32", cuda,
+                                      0.0 if S > 1 else 0.5)
+    want_y, want_h = ref.mamba_scan_ref(u, dt, a, b, c, h0)
+    y, h = ops.selective_scan(u, dt, a, b, c, h0, out=h0)
+    assert h is h0
+    torch.testing.assert_close(y, want_y, rtol=TOL["float32"],
+                               atol=TOL["float32"])
+    torch.testing.assert_close(h, want_h, rtol=TOL["float32"],
+                               atol=TOL["float32"])
+
+
+def test_mamba_scan_carries_state_across_calls(cuda):
+    u, dt, a, b, c, h0 = mamba_inputs(60, 2, 200, 256, 16, "float32", cuda,
+                                      0.3)
+    y, h = ops.selective_scan(u, dt, a, b, c, h0)
+    y1, h1 = ops.selective_scan(u[:, :77], dt[:, :77], a, b[:, :77],
+                                c[:, :77], h0)
+    y2, h2 = ops.selective_scan(u[:, 77:], dt[:, 77:], a, b[:, 77:],
+                                c[:, 77:], h1)
+    torch.testing.assert_close(torch.cat([y1, y2], dim=1), y, rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(h2, h, rtol=1e-5, atol=1e-5)
+
+
+def test_flash_attention_jamba_prefill_shape(cuda):
+    """Head dim 128 at Jamba's prefill, in the model's (B,S,N,hd) layout."""
+    for dtype in ("float32", "bfloat16"):
+        q = randn(10, (4, 256, 32, 128), dtype, cuda).transpose(1, 2)
+        k = randn(11, (4, 256, 8, 128), dtype, cuda).transpose(1, 2)
+        v = randn(12, (4, 256, 8, 128), dtype, cuda).transpose(1, 2)
+        torch.testing.assert_close(
+            ops.flash_attention(q, k, v).float(),
+            ref.attention_ref(q, k, v).float(), rtol=TOL[dtype],
+            atol=TOL[dtype])
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = torch.zeros((1, 4, 8, 48), device=cuda)          # head_dim 48
     with pytest.raises(ValueError, match="head_dim"):
@@ -97,3 +172,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     g = torch.zeros((1, 8, 2), device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         ops.mlstm(x, x, x, g, g, torch.zeros((1, 2, 40, 40), device=cuda))
+    u = torch.zeros((1, 8, 32), device=cuda)
+    bc = torch.zeros((1, 8, 12), device=cuda)                # N = 12
+    with pytest.raises(ValueError, match="state size"):
+        ops.selective_scan(u, u, torch.zeros((32, 12), device=cuda), bc, bc,
+                           torch.zeros((1, 32, 12), device=cuda))

@@ -54,8 +54,9 @@ def test_no_library_attention_or_compile(path):
 
 def test_scan_sees_the_whole_port():
     names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
-    assert {"kernels/ops.py", "kernels/mlstm_scan.py", "models/lm.py",
-            "launch/serve.py", "serve/admission.py", "convert.py"} <= names
+    assert {"kernels/ops.py", "kernels/mlstm_scan.py", "kernels/mamba_scan.py",
+            "models/lm.py", "models/moe.py", "launch/serve.py",
+            "serve/admission.py", "convert.py"} <= names
     assert (ROOT / "chip_smoke.py").exists()
 
 
@@ -80,6 +81,8 @@ def test_entry_points_refuse_the_cpu_by_default(no_cuda):
         init_cache(cfg, 1, 8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_cache(smoke(get_config("xlstm-125m")), 1, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_cache(smoke(get_config("jamba-v0.1-52b")), 1, 8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         KernelDecode(slots=2)
     from repro_torch.launch import xlstm_probe

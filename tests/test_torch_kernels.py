@@ -142,7 +142,7 @@ def test_launch_counters_stay_zero_on_cpu():
     ops.flash_attention(q, k, v)
     ops.flash_decode(q[:, :, :1], k, v, 10)
     assert ops.launch_counts() == {"flash_attention": 0, "flash_decode": 0,
-                                   "mlstm_scan": 0}
+                                   "mlstm_scan": 0, "mamba_scan": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

@@ -143,7 +143,7 @@ def test_launch_counters_stay_zero_on_cpu():
     pairs, (_, c0), _ = inputs(1, 8, 1, 16, "float32")
     ops.mlstm(*(t for _, t in pairs), c0, chunk=4)
     assert ops.launch_counts() == {"flash_attention": 0, "flash_decode": 0,
-                                   "mlstm_scan": 0}
+                                   "mlstm_scan": 0, "mamba_scan": 0}
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
