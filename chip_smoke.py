@@ -6,7 +6,9 @@
 Phases, each of which must pass (any failure exits non-zero):
   1. the card's name and power limit; TF32 off for fp32 products;
   2. build the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
-     nvcc per source, started together);
+     nvcc per source, started together); the attention kernels' registers,
+     spills (none allowed) and shared memory, and the HGMMA instructions of
+     the bf16 ``flash_attention`` in its SASS;
   3. hold each kernel against its plain PyTorch version on the card, fp32
      and bf16, over the repo's sweeps and the serving paths' own shapes;
   4. full-width llama3.2-1b (16 layers) in fp32: the kernel path against
@@ -30,8 +32,10 @@ Phases, each of which must pass (any failure exits non-zero):
      weights; all 32 layers would be 103 GB) in bf16 as in phase 5: every
      mamba layer went through ``mamba_scan``, both attention layers
      through the attention kernels; then its layers as in phase 9;
- 11. one ``{"kernels": [...]}`` line with each kernel's time, bound, plain
-     and library times at the serving shapes.
+ 11. one ``flash_attention`` and one ``flash_decode`` call under
+     torch.profiler, each exactly one device kernel; then one
+     ``{"kernels": [...]}`` line with each kernel's time, bound, plain and
+     library times at the serving shapes.
 The last line is ``{"ok": true, "device": {...}}``.  Without a card, or
 outside a checkout, the script exits non-zero and prints no result.
 """
@@ -39,10 +43,13 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Dict
 
 ROOT = Path(__file__).resolve().parent
 
@@ -181,6 +188,46 @@ def mamba_bound(B, S, di, N, dtype="float32"):
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def ptxas_report(log_text: str):
+    """{entry function: (registers, spill store bytes, spill load bytes,
+    static shared-memory bytes)} from nvcc's ``-Xptxas -v`` output."""
+    out, fn = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", line)
+        if m:
+            fn = m.group(1)
+            out.setdefault(fn, [0, 0, 0, 0])
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[fn][1:3] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[fn][0] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[fn][3] = int(sm.group(1)) if sm else 0
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def sass_forms(lib: Path, opcode: str) -> Dict[str, int]:
+    """{instruction form: count} of the ``opcode`` instructions in the
+    card's code in ``lib`` (``cuobjdump -sass``); a form is the opcode with
+    its modifiers and, for HGMMA, whether B is read transposed."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    res = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=120)
+    check(res.returncode == 0, f"cuobjdump -sass {lib.name}: {res.stderr}")
+    forms: Dict[str, int] = {}
+    for m in re.finditer(rf"\b({opcode}\.[\w.]+)([^;]*);", res.stdout):
+        form = m.group(1) + (" tnspB" if ".tnspB" in m.group(2) else "")
+        forms[form] = forms.get(form, 0) + 1
+    return forms
 
 
 def layer_parity(name, model, prompts, tol=MODEL_TOL):
@@ -345,6 +392,31 @@ def run(torch) -> int:
                  if "registers" in ln or "spill" in ln]
         for line in dict.fromkeys(lines):
             log(f"[ptxas {name}] {line}")
+    # The two attention kernels redesigned for Hopper: per entry function
+    # its registers, spills and shared memory (dynamic, from the wrappers'
+    # reckoning, beside ptxas's static), no spills allowed; and the bf16
+    # attention's products on the tensor cores (HGMMA in its SASS).
+    from repro_torch.kernels import decode_attention, flash_attention
+    for name in ("flash_attention", "flash_decode"):
+        for fn, (regs, st, ld, smem) in ptxas_report(
+                _build.build_log(name)).items():
+            dyn = ""
+            if "attn_wgmma_kernel" in fn:
+                hd = int(fn.split("attn_wgmma_kernelILi")[1].split("E")[0])
+                dyn = f", {flash_attention.wgmma_smem_bytes(hd)} B dynamic"
+            elif "decode_kernel" in fn:
+                item = 2 if "bfloat16" in fn else 4
+                dyn = (f", {decode_attention.smem_bytes(4, 128, item)} B "
+                       f"dynamic at g 4, hd 128")
+            log(f"[ptxas {name}] {fn}: {regs} registers, spill stores {st} "
+                f"B, spill loads {ld} B, {smem} B static shared{dyn}")
+            check(st == 0 and ld == 0, f"{fn} spills ({st} B, {ld} B)")
+    hgmma = sass_forms(_build.lib_path("flash_attention"), "HGMMA")
+    log(f"[sass flash_attention] {sum(hgmma.values())} HGMMA instructions: "
+        f"{json.dumps(hgmma)}")
+    check(any("tnspB" in f for f in hgmma) and
+          any("tnspB" not in f for f in hgmma),
+          "flash_attention's bf16 kernel issues no HGMMA for one product")
 
     def randn(seed, shape, dtype):
         g = torch.Generator(device=dev)
@@ -465,11 +537,15 @@ def run(torch) -> int:
         kc = randn(14, (BATCH, MAX_LEN, 8, 64), dtype).transpose(1, 2)
         vc = randn(15, (BATCH, MAX_LEN, 8, 64), dtype).transpose(1, 2)
         for kv_len in DECODE_KV_LENS:
-            hold("flash_decode", ops.flash_decode(qd, kc, vc, kv_len),
+            got = ops.flash_decode(qd, kc, vc, kv_len)
+            hold("flash_decode", got,
                  ref.attention_ref(qd, kc, vc, causal=False, kv_len=kv_len),
                  dtype, f"decode (4,32,1,64)/(4,8,512,64) kv_len={kv_len}",
                  main_shape=True)
-        n_checks += 1 + len(DECODE_KV_LENS)
+            # The merge's tickets are back at zero: a repeat is bitwise.
+            check(torch.equal(ops.flash_decode(qd, kc, vc, kv_len), got),
+                  f"flash_decode repeat differs at kv_len {kv_len}")
+        n_checks += 1 + 2 * len(DECODE_KV_LENS)
         # mlstm_scan: the repo's sweep, a ragged second chunk at the
         # default chunk, a nonzero state carried across two calls, and the
         # serving shapes (prefill from a zero state; a decode step updating
@@ -822,6 +898,11 @@ def run(torch) -> int:
         return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
 
     kv_len = PROMPT + NEW // 2      # the middle of the served decode run
+    # What the same method reads for one trivial kernel: the launch and
+    # event overhead under every time below.
+    one = torch.zeros(1, device=dev)
+    log(f"[timing] one-element add_ by the same method: "
+        f"{cold_ms(lambda: one.add_(1)):.5f} ms")
 
     def attention_times(hd, seed):
         """flash_attention (prefill) and flash_decode (one step at kv_len)
@@ -869,6 +950,32 @@ def run(torch) -> int:
     def launches_of(name):
         per = {path: c[name] for path, c in by_path.items()}
         return sum(per.values()), per
+
+    def device_kernels(fn):
+        """Names of the device activities (kernels, memsets, copies) of one
+        call of ``fn``, after a warm-up call, from torch.profiler."""
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return [e.name for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    qp = randn(170, (BATCH, PROMPT, 32, JHD), "bfloat16").transpose(1, 2)
+    kp = randn(171, (BATCH, PROMPT, 8, JHD), "bfloat16").transpose(1, 2)
+    qd = randn(172, (BATCH, 1, 32, JHD), "bfloat16").transpose(1, 2)
+    kc = randn(173, (BATCH, MAX_LEN, 8, JHD), "bfloat16").transpose(1, 2)
+    for name, fn in (
+            ("flash_attention", lambda: ops.flash_attention(qp, kp, kp)),
+            ("flash_decode", lambda: ops.flash_decode(qd, kc, kc, kv_len))):
+        names = device_kernels(fn)
+        log(f"[profile] one {name} call: device activities {names}")
+        check(len(names) == 1, f"{name} ran {len(names)} device activities "
+                               f"in one call, not 1: {names}")
+    del qp, kp, qd, kc
 
     llama_t, jamba_t = attention_times(64, 20), attention_times(JHD, 140)
     kernels = []

@@ -10,11 +10,46 @@
 //
 // What bounds it: operations.  A causal prefill of S tokens does about
 // 2 * S^2 * hd multiply-adds per head over S * hd inputs, far above the
-// card's ridge.  This first version computes in fp32 on the CUDA cores (the
-// fp32 sweep holds it to 2e-5, which TF32 or bf16 tensor cores could not
-// meet); a later version moves the two products onto wgmma.
+// card's ridge.  Two kernels share the contract:
 //
-// Design:
+// bf16 (attn_wgmma_kernel): both products on the tensor cores.
+//   * One warpgroup (128 threads) per (64-row query tile, q head, batch),
+//     the longest causal tiles launched first across the whole grid.  The
+//     block stages its Q tile once and streams 32-key K/V tiles through a
+//     2-stage ring in shared memory: cp.async 16-byte copies issue tile
+//     t+1 before tile t is computed.  cp.async rather than TMA: the model
+//     hands in strided (B,S,N,hd) views whose every row is 16-byte
+//     aligned, so plain copies need no tensor map built per call on the
+//     host and no driver entry point, and rows past Sq (Q) or past
+//     min(Skv, kv_len) (K, V) are zero-filled by the copy itself (src-size
+//     0).  Zero rows matter: a garbage V row times p = 0 gives NaN on the
+//     tensor cores.
+//   * Why 32 keys and one stage of prefetch: at the serving shapes (a few
+//     hundred keys) a block's time is the latency of its serial chain of
+//     tiles, not the tensor cores' rate.  32-key tiles keep the registers
+//     at 127 and the shared memory at 49 KB per block at hd 128, so four
+//     blocks share an SM and the whole grid (512 blocks) is resident at
+//     once; 64-key tiles, a deeper ring, and issuing Q.K^T of tile t+1
+//     under P.V of tile t were all slower on the card.
+//   * Tiles sit in shared memory in wgmma's canonical layout: column blocks
+//     of 32/64/128 bytes a row (hd 16/32/64; hd 128 is two 128-byte blocks),
+//     16-byte chunks XOR-swizzled by the row within each 8-row atom, the
+//     descriptor's layout type matching the swizzle the copies wrote.
+//   * S = Q.K^T is wgmma m64n32k16 with both operands in shared memory (K's
+//     row-major (keys, hd) tile is already the K-major B operand).  The
+//     softmax runs in registers on the accumulator fragment: a thread holds
+//     two rows (lane/4 and lane/4 + 8 of its warp's 16), so a row's max is
+//     two __shfl_xor_sync within the quad; scale (folded with log2 e for
+//     the SFU's exp2), softcap (the SFU's tanh) and the causal/window/kv_len
+//     masks act per element, the masks only on tiles that straddle a
+//     boundary.
+//   * O += P.V is wgmma with P from registers: the fp32 score fragment,
+//     converted to bf16 pairs, is already the A operand's fragment.  V is
+//     the B operand read MN-major (the transpose bit), so V needs no
+//     transposed copy.  O (64 x hd fp32) stays in registers.
+//
+// fp32 (attn_kernel): the CUDA cores, since the fp32 sweep's 2e-5 rules out
+// TF32.
 //   * One block per (q tile of 64 rows, q head, batch).  At head dims 16,
 //     32 and 64 one thread owns one query row, holding its scaled q, its
 //     fp32 accumulator and the row's running max and sum in registers.  A
@@ -30,18 +65,19 @@
 //     the block.  Each tile is staged once in shared memory as fp32 and read
 //     by every thread of the block at the same address (a broadcast), so a
 //     K/V byte fetched from device memory serves all 64 rows of the tile.
-//   * The loop runs only over tiles the block can see: up to the causal
-//     limit of its last row, from the window's start for its first row, and
-//     below kv_len.  Rows mask the rest element by element.
-//   * Masked scores take the finite sentinel -1e30, never -inf, so a fully
-//     masked leading tile is wiped later by alpha = exp(-1e30 - m) = 0; the
-//     output is acc / max(l, 1e-30), written in q's dtype.
+//
+// Both loop only over tiles the block can see: up to the causal limit of
+// its last row, from the window's start for its first row, and below
+// kv_len.  Masked scores take the finite sentinel -1e30, never -inf, so a
+// fully masked leading tile is wiped later by alpha = exp(-1e30 - m) = 0;
+// the output is acc / max(l, 1e-30), written in q's dtype.
 //
 // Plain C interface for ctypes; the launch returns cudaGetLastError().
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
+#include <cstdint>
 
 namespace {
 
@@ -49,16 +85,9 @@ constexpr int BQ = 64;              // query rows per block
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 struct AttnArgs {
@@ -189,6 +218,458 @@ int launch(const AttnArgs& a, int B, int Hq, int hd, cudaStream_t stream) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: wgmma
+// ---------------------------------------------------------------------------
+constexpr int BKW = 32;             // keys per K/V tile of the wgmma kernel
+constexpr int WG = 128;             // threads of one warpgroup
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy from global to shared memory; src_bytes 0 reads
+// nothing and fills the 16 bytes with zeros.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// Orders this thread's cp.async writes before reads by the async proxy,
+// through which wgmma reads its shared-memory operands.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Pin register values in program order around the asynchronous wgmma, so
+// the compiler neither moves a write past wgmma.fence nor reads a result
+// before wgmma.wait_group.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
+// exp2 and tanh on the special-function unit (bf16 outputs; the fp32
+// kernel keeps expf/tanhf).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float tanh_approx(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// A tile of ROWS rows of HD bf16 values in shared memory, laid out as wgmma
+// reads it: column blocks of ROWB bytes a row (the swizzle width), each
+// block ROWS rows x ROWB bytes with the rows packed, and within each 8-row
+// atom the 16-byte chunks of row r XOR-ed with r mod 8 (128 B), (r/2) mod 4
+// (64 B) or (r/4) mod 2 (32 B), which is the hardware's swizzle of address
+// bits 4-6 by bits 7-9.  Tile and block bases are 1024-byte aligned, so
+// the swizzle of an offset is the swizzle of the address.
+template <int HD, int ROWS = 64>
+struct TileLayout {
+  static constexpr int ROWB = HD * 2 < 128 ? HD * 2 : 128;
+  static constexpr int CPB = ROWB / 16;       // 16-byte chunks a block row
+  static constexpr int BLOCK = ROWS * ROWB;   // bytes of one column block
+  static constexpr int BYTES = ROWS * HD * 2; // bytes of the tile
+  // Descriptor layout type: 1 = 128 B swizzle, 2 = 64 B, 3 = 32 B.
+  static constexpr uint64_t MODE = ROWB == 128 ? 1 : ROWB == 64 ? 2 : 3;
+
+  // Byte offset of 16-byte chunk c (of HD / 8) of row r.
+  __device__ __forceinline__ static uint32_t chunk(int r, int c) {
+    const uint32_t o = r * ROWB + (c % CPB) * 16;
+    return (c / CPB) * BLOCK + (o ^ (((o >> 7) & (CPB - 1)) << 4));
+  }
+};
+
+// Shared-memory matrix descriptor (PTX ISA, "Matrix Descriptor Format"):
+// start address, leading and stride byte offsets (all >> 4), layout type.
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t mode) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (mode << 62);
+}
+
+// Q (as A) or K (as B) K-major, k-slice kk of 16 head dims: 32 bytes into a
+// block row; 8-row groups SBO = 8 rows apart (LBO is unused when swizzled).
+template <int HD, int ROWS = 64>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
+  using L = TileLayout<HD, ROWS>;
+  constexpr int SPB = L::ROWB / 32;           // k-slices a block row
+  return gmma_desc(tile + (kk / SPB) * L::BLOCK + (kk % SPB) * 32, 16,
+                   8 * L::ROWB, L::MODE);
+}
+
+// V as the MN-major (transposed) B operand of P.V, k-slice kk of 16 keys:
+// LBO steps to the next column block along hd, SBO to the next 8 keys.
+template <int HD, int ROWS = 64>
+__device__ __forceinline__ uint64_t desc_v(uint32_t tile, int kk) {
+  using L = TileLayout<HD, ROWS>;
+  return gmma_desc(tile + kk * 16 * L::ROWB, L::BLOCK, 8 * L::ROWB, L::MODE);
+}
+
+// Copy rows row0 .. row0 + ROWS - 1 of a (rows, HD) bf16 matrix with the
+// given row stride into a tile; rows at or past `rows` are filled with
+// zeros.
+template <int HD, int ROWS = 64>
+__device__ __forceinline__ void load_tile(uint32_t dst,
+                                          const __nv_bfloat16* src,
+                                          long long row_stride, int row0,
+                                          int rows) {
+  constexpr int CPR = HD / 8;                 // 16-byte chunks a row
+  constexpr int CHUNKS = ROWS * CPR;
+#pragma unroll
+  for (int u = 0; u < (CHUNKS + WG - 1) / WG; ++u) {
+    const int i = u * WG + threadIdx.x;
+    if (CHUNKS % WG != 0 && i >= CHUNKS) break;
+    const int r = i / CPR, c = i % CPR;
+    const bool ok = row0 + r < rows;
+    const __nv_bfloat16* g =
+        ok ? src + (long long)(row0 + r) * row_stride + c * 8 : src;
+    cp_async16(dst + TileLayout<HD, ROWS>::chunk(r, c), g, ok ? 16 : 0);
+  }
+}
+
+// The wgmma instructions, one per shape this kernel issues (PTX ISA,
+// "wgmma.mma_async"): bf16 inputs, fp32 accumulators.
+
+// S[64 x 32] (+)= A[64 x 16] * B[16 x 32], A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// O[64 x 16] += A[64 x 16] * B[16 x 16], A in registers, B MN-major in
+// shared memory (the transpose bit set).
+__device__ __forceinline__ void wgmma_rs(float (&d)[8],
+                                         const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// O[64 x 32] += A[64 x 16] * B[16 x 32], A in registers, B MN-major in
+// shared memory (the transpose bit set).
+__device__ __forceinline__ void wgmma_rs(float (&d)[16],
+                                         const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// O[64 x 64] += A[64 x 16] * B[16 x 64], A in registers, B MN-major in
+// shared memory (the transpose bit set).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// O[64 x 128] += A[64 x 16] * B[16 x 128], A in registers, B MN-major in
+// shared memory (the transpose bit set).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int HD>
+__global__ void __launch_bounds__(WG) attn_wgmma_kernel(AttnArgs a) {
+  using L = TileLayout<HD>;
+  using KL = TileLayout<HD, BKW>;
+  using bf16 = __nv_bfloat16;
+  // Q tile (64 rows), then two stages of (K tile, V tile) of BKW rows, from
+  // a 1024-aligned base.
+  extern __shared__ unsigned char smem[];
+  const uint32_t base = (smem_addr(smem) + 1023u) & ~1023u;
+  const uint32_t sq = base;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // Blocks start in grid order, x fastest: the q tile is the slowest axis,
+  // taken from the last, so every block of the longest causal rows starts
+  // before any shorter one.
+  const int qi = gridDim.z - 1 - blockIdx.z;
+  const int h = blockIdx.x, b = blockIdx.y, hk = h / a.g;
+  const bf16* q = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const bf16* k = static_cast<const bf16*>(a.k) + b * a.k_sb + hk * a.k_sh;
+  const bf16* v = static_cast<const bf16*>(a.v) + b * a.v_sb + hk * a.v_sh;
+
+  // Key range the block can see (as attn_kernel, in tiles of BKW).
+  const int first_pos = qi * BQ + a.q_offset;
+  const int last_pos = min(qi * BQ + BQ, a.Sq) - 1 + a.q_offset;
+  int kv_end = a.kv_lim;
+  int kv_begin = 0;
+  if (a.causal) {
+    kv_end = min(kv_end, last_pos + 1);
+    if (a.window > 0) kv_begin = max(0, first_pos - a.window + 1) / BKW * BKW;
+  }
+  const int n_tiles =
+      kv_end > kv_begin ? (kv_end - kv_begin + BKW - 1) / BKW : 0;
+
+  load_tile<HD>(sq, q, a.q_ss, qi * BQ, a.Sq);
+  if (n_tiles > 0) {
+    load_tile<HD, BKW>(base + L::BYTES, k, a.k_ss, kv_begin, a.kv_lim);
+    load_tile<HD, BKW>(base + L::BYTES + KL::BYTES, v, a.v_ss, kv_begin,
+                       a.kv_lim);
+  }
+  cp_async_commit();
+
+  // This thread's rows of the tile: r0 and r0 + 8.  Running max (log2
+  // units) and this thread's part of each row's sum.
+  const int r0 = warp * 16 + (lane >> 2);
+  const int qp0 = qi * BQ + r0 + a.q_offset, qp1 = qp0 + 8;
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+  const float sl2 = a.scale * LOG2E;
+  const float cap_in = a.softcap > 0.f ? a.scale / a.softcap : 0.f;
+  const float cap_out = a.softcap * LOG2E;
+  float o[HD / 2];            // O fragment: o[4j + e], rows r0 (e < 2), r0 + 8
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int t0 = kv_begin + t * BKW;
+    const uint32_t sk = base + L::BYTES + 2 * (t & 1) * KL::BYTES;
+    const uint32_t sv = sk + KL::BYTES;
+    cp_async_wait_all();
+    fence_async_shared();
+    __syncthreads();  // tile t in place; every warp done with tile t - 1
+    if (t + 1 < n_tiles) {
+      const uint32_t nk = base + L::BYTES + 2 * ((t + 1) & 1) * KL::BYTES;
+      load_tile<HD, BKW>(nk, k, a.k_ss, t0 + BKW, a.kv_lim);
+      load_tile<HD, BKW>(nk + KL::BYTES, v, a.v_ss, t0 + BKW, a.kv_lim);
+      cp_async_commit();
+    }
+
+    // S = Q K^T: fragment s[4j + e] is row r0 (e < 2) or r0 + 8, key
+    // t0 + 8j + 2 (lane % 4) + e % 2.
+    float s[BKW / 2];
+#pragma unroll
+    for (int i = 0; i < BKW / 2; ++i) s[i] = 0.f;
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      wgmma_ss(s, desc_k<HD>(sq, kk), desc_k<HD, BKW>(sk, kk), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    const bool full = t0 + BKW <= a.kv_lim &&
+        (!a.causal || (t0 + BKW - 1 <= first_pos &&
+                       (a.window <= 0 || last_pos - t0 < a.window)));
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int i = 0; i < BKW / 2; ++i) {
+      float x = s[i];
+      if (a.softcap > 0.f) {
+        x = cap_out * tanh_approx(x * cap_in);
+      } else {
+        x *= sl2;
+      }
+      if (!full) {
+        const int kp = t0 + (i >> 2) * 8 + 2 * (lane & 3) + (i & 1);
+        const int qp = (i & 2) ? qp1 : qp0;
+        bool keep = kp < a.kv_lim;
+        if (a.causal) {
+          keep = keep && kp <= qp;
+          if (a.window > 0) keep = keep && (qp - kp) < a.window;
+        }
+        x = keep ? x : NEG_INF;
+      }
+      s[i] = x;
+      if (i & 2) {
+        mx1 = fmaxf(mx1, x);
+      } else {
+        mx0 = fmaxf(mx0, x);
+      }
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float al0 = ex2(m0 - mx0), al1 = ex2(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    l0 *= al0;
+    l1 *= al1;
+    // P as the A operand: register pa[4 kk + i] holds s[8 kk + 2 i] and its
+    // neighbour, which is exactly the m64k16 A fragment of keys 16 kk ...
+    uint32_t pa[BKW / 4];
+#pragma unroll
+    for (int i = 0; i < BKW / 4; ++i) {
+      const float mm = (i & 1) ? m1 : m0;
+      const float p0 = ex2(s[2 * i] - mm), p1 = ex2(s[2 * i + 1] - mm);
+      if (i & 1) {
+        l1 += p0 + p1;
+      } else {
+        l0 += p0 + p1;
+      }
+      pa[i] = pack_bf16(p0, p1);
+    }
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] *= (i & 2) ? al1 : al0;
+
+    // O += P V.
+    fence_regs(o);
+    fence_regs(pa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BKW / 16; ++kk) {
+      wgmma_rs(o, pa + 4 * kk, desc_v<HD, BKW>(sv, kk));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+  }
+  cp_async_wait_all();
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float d0 = 1.f / fmaxf(l0, 1e-30f), d1 = 1.f / fmaxf(l1, 1e-30f);
+  const int row0 = qi * BQ + r0, row1 = row0 + 8;
+  bf16* out = static_cast<bf16*>(a.o) + b * a.o_sb + h * a.o_sh;
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    const int col = 8 * j + 2 * (lane & 3);
+    if (row0 < a.Sq) {
+      *reinterpret_cast<__nv_bfloat162*>(out + row0 * a.o_ss + col) =
+          __floats2bfloat162_rn(o[4 * j] * d0, o[4 * j + 1] * d0);
+    }
+    if (row1 < a.Sq) {
+      *reinterpret_cast<__nv_bfloat162*>(out + row1 * a.o_ss + col) =
+          __floats2bfloat162_rn(o[4 * j + 2] * d1, o[4 * j + 3] * d1);
+    }
+  }
+}
+
+// Dynamic shared memory of attn_wgmma_kernel<HD>: the Q tile, two stages of
+// K and V tiles, and 1024 bytes to align the base.
+constexpr int wgmma_smem_bytes(int hd) {
+  return (BQ + 4 * BKW) * hd * 2 + 1024;
+}
+
+template <int HD>
+int launch_wgmma_hd(const AttnArgs& a, int B, int Hq, cudaStream_t stream) {
+  constexpr int smem = wgmma_smem_bytes(HD);
+  // Past 48 KB a launch needs the opt-in, which is per device: set it on
+  // the current one at every such launch.
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        attn_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid(Hq, B, (a.Sq + BQ - 1) / BQ);
+  attn_wgmma_kernel<HD><<<grid, WG, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_wgmma(const AttnArgs& a, int B, int Hq, int hd,
+                 cudaStream_t stream) {
+  switch (hd) {
+    case 16: return launch_wgmma_hd<16>(a, B, Hq, stream);
+    case 32: return launch_wgmma_hd<32>(a, B, Hq, stream);
+    case 64: return launch_wgmma_hd<64>(a, B, Hq, stream);
+    case 128: return launch_wgmma_hd<128>(a, B, Hq, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" int flash_attention_launch(
@@ -213,6 +694,6 @@ extern "C" int flash_attention_launch(
   a.softcap = softcap;
   a.scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(hd)));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<__nv_bfloat16>(a, B, Hq, hd, s)
+  return is_bf16 ? launch_wgmma(a, B, Hq, hd, s)
                  : launch<float>(a, B, Hq, hd, s);
 }

@@ -1,5 +1,5 @@
 // flash_decode for Hopper (sm_90a): one-query attention over a preallocated
-// K/V cache.
+// K/V cache, in one launch.
 //
 // Replaces the Pallas TPU kernel repro.kernels.decode_attention.flash_decode
 // (src/repro/kernels/decode_attention.py:66, body _kernel :26-63).
@@ -8,25 +8,38 @@
 // for one multiply-add per query row of the GQA group (g = Hq/Hkv rows), so
 // the arithmetic intensity is about g/2 flop per byte in bf16, far below the
 // card's ~295 flop/byte ridge.  The time floor is the K/V bytes up to kv_len
-// over 3.35 TB/s.
+// over 3.35 TB/s; at the serving shapes (a few hundred keys) that is under
+// 2 us, so what a call costs is its chain of dependent latencies: the
+// launch, one trip to device memory, the merge.
 //
 // Design:
 //   * One block per (batch, KV head, KV split).  The block holds the g query
 //     rows that share the KV head, so every K/V byte read from device memory
 //     serves all g rows (the TPU kernel's "GQA group forms the q tile").
-//   * The TPU grid's sequential KV axis, which carried (m, l, acc) in VMEM
-//     scratch, becomes a loop over 64-key tiles inside the block; the tiles
-//     are staged in shared memory as fp32 with a padded row stride so the
-//     column reads of the score and PV phases are free of bank conflicts.
-//     Each thread issues its 16-byte loads of a tile together, so a tile
-//     costs about one trip to device memory, not one per element.
-//   * Only tiles below kv_len are read: the cache past kv_len is never
-//     touched, so the bytes moved follow the sequence, not the capacity.
+//     At 4 rows the tensor cores would buy nothing: CUDA cores, fp32 math.
 //   * Split-KV: at batch 4 the (batch, KV head) grid has only 32 blocks for
-//     132 SMs.  The wrapper splits the valid tiles over gridDim.z so the grid
-//     fills the card; each split writes its fp32 (m, l, acc) partials and a
-//     second small kernel merges them.  With one split the first kernel
-//     writes the output directly.
+//     132 SMs, so the wrapper's split_plan spreads the valid 32-key tiles
+//     over gridDim.z (at kv_len 272: 9 splits of one tile, 288 blocks).
+//   * Bytes in flight: a block issues its first two K/V tiles (at the
+//     serving shapes, its whole range) as cp.async 16-byte copies before it
+//     touches q, then waits once; longer splits stream through the same
+//     2-stage ring, a tile refilled as soon as it is consumed.  Tiles stay
+//     in the input dtype in shared memory (bf16 is converted on read), each
+//     row padded by 16 bytes so that a warp's 16-byte row reads (one key a
+//     lane) and its column reads are free of bank conflicts.  Keys at or
+//     past kv_len are never read (the copy zero-fills them), so the bytes
+//     moved follow the sequence, not the cache's capacity.
+//   * One launch: each split writes its fp32 (m, l, acc) partials; the last
+//     block of a (batch, KV head) to finish merges them.  Every block
+//     fences its partials (one thread, after a barrier) and draws a ticket
+//     from an int32 counter per (batch, KV head) with an atomic add; the
+//     block that draws n_split - 1 merges the partials in one pass and
+//     writes the output, then stores 0 back into the counter.  So a call leaves the counters zeroed, and
+//     the next call on the same stream, which stream order starts only
+//     after this kernel has finished, finds them so with no memset.  Two
+//     calls on two streams at once would share counters: the wrapper keeps
+//     one counter tensor per (device, stream).  With one split the block
+//     writes the output directly and draws no ticket.
 //   * Online softmax in fp32 with the finite mask sentinel -1e30 (never
 //     -inf), and the output divided by max(l, 1e-30), as on the TPU.
 //
@@ -35,14 +48,15 @@
 #include <cuda_runtime.h>
 
 #include <cmath>
+#include <cstdint>
 
 namespace {
 
 constexpr int NT = 128;             // threads per block (4 warps)
-constexpr int BK = 64;              // keys per tile (two per lane in a warp)
+constexpr int BK = 32;              // keys per tile: one a lane in the softmax
+constexpr int NSTAGE = 2;           // tiles in flight
 constexpr int MAX_GHD = 2048;       // largest g * hd held in registers
-constexpr int ACC_PER_THREAD = MAX_GHD / NT;
-constexpr int LOAD_BATCH = 8;       // 16-byte loads in flight per tensor
+constexpr int PAIRS = MAX_GHD / 2 / NT;   // output pairs per thread
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -58,17 +72,44 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// Convert one 16-byte vector of T to fp32 in shared memory.
-__device__ __forceinline__ void store_vec(float* dst, const uint4& r, float) {
-  const float* e = reinterpret_cast<const float*>(&r);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) dst[i] = e[i];
+// One 16-byte vector of a staged row as fp32.
+__device__ __forceinline__ void load16(float* e, const unsigned char* p,
+                                       float) {
+  const float4 r = *reinterpret_cast<const float4*>(p);
+  e[0] = r.x; e[1] = r.y; e[2] = r.z; e[3] = r.w;
 }
-__device__ __forceinline__ void store_vec(float* dst, const uint4& r,
-                                          __nv_bfloat16) {
-  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&r);
+__device__ __forceinline__ void load16(float* e, const unsigned char* p,
+                                       __nv_bfloat16) {
+  const uint4 r = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) dst[i] = __bfloat162float(e[i]);
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    e[2 * i] = f.x;
+    e[2 * i + 1] = f.y;
+  }
+}
+// Two neighbouring elements of a staged row as fp32.
+__device__ __forceinline__ float2 load2(const unsigned char* p, float) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const unsigned char* p,
+                                        __nv_bfloat16) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -87,6 +128,7 @@ struct DecodeArgs {
   void* o;                // (B, Hq, 1, hd)
   float* part_acc;        // (B*Hq, n_split, hd)   when n_split > 1
   float* part_ml;         // (B*Hq, n_split, 2)
+  int* tickets;           // (B*Hkv), zero between calls
   int B, Hq, Hkv, T, hd, g;
   long long q_sb, q_sh;
   long long k_sb, k_sh, k_st;
@@ -97,24 +139,59 @@ struct DecodeArgs {
   int n_split, tiles_per_split;
 };
 
+// Bytes of one staged K or V row: the row and a 16-byte pad.
+__host__ __device__ constexpr int row_bytes(int hd, int item) {
+  return hd * item + 16;
+}
+
+// Dynamic shared memory: NSTAGE (K tile, V tile) pairs, then fp32 q, the
+// tile's probabilities and the rows' running max, sum and rescale.
+size_t smem_bytes(int g, int hd, int item) {
+  return static_cast<size_t>(NSTAGE) * 2 * BK * row_bytes(hd, item) +
+         sizeof(float) * (g * hd + g * BK + 3 * g);
+}
+
 template <typename T>
 __global__ void __launch_bounds__(NT) decode_kernel(DecodeArgs a) {
-  extern __shared__ float smem[];
-  const int hd = a.hd, g = a.g, ld = hd + 1;
-  float* qs = smem;                 // g * hd, pre-scaled queries
-  float* ks = qs + g * hd;          // BK * ld
-  float* vs = ks + BK * ld;         // BK * ld
-  float* ps = vs + BK * ld;         // g * BK scores, then probabilities
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int last_block;
+  const int hd = a.hd, g = a.g;
+  const int rb = row_bytes(hd, sizeof(T)), tile_b = BK * rb;
+  float* qs = reinterpret_cast<float*>(smem + NSTAGE * 2 * tile_b);
+  float* ps = qs + g * hd;          // g * BK scores, then probabilities
   float* row_m = ps + g * BK;       // g running max
   float* row_l = row_m + g;         // g running sum
   float* row_alpha = row_l + g;     // g rescale of this tile
 
   const int b = blockIdx.x, h = blockIdx.y, split = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
   const T* v = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
+  const int t_begin = split * a.tiles_per_split * BK;
+  const int t_end = min(a.kv_len, t_begin + a.tiles_per_split * BK);
+  const int n_tiles = (t_end - t_begin + BK - 1) / BK;   // >= 1
 
+  constexpr int VEC = 16 / sizeof(T);        // elements per 16-byte vector
+  const int vpr = hd / VEC;
+  // Issue tile t's copies into its stage, one commit group per tile.
+  auto issue = [&](int t) {
+    unsigned char* ks = smem + (t % NSTAGE) * 2 * tile_b;
+    unsigned char* vs = ks + tile_b;
+    const int t0 = t_begin + t * BK;
+    for (int i = tid; i < BK * vpr; i += NT) {
+      const int j = i / vpr, c = i - j * vpr, key = t0 + j;
+      const bool ok = key < t_end;
+      cp_async16(ks + j * rb + c * 16, ok ? k + key * a.k_st + c * VEC : k,
+                 ok ? 16 : 0);
+      cp_async16(vs + j * rb + c * 16, ok ? v + key * a.v_st + c * VEC : v,
+                 ok ? 16 : 0);
+    }
+    cp_async_commit();
+  };
+  for (int t = 0; t < NSTAGE && t < n_tiles; ++t) issue(t);
+
+  // q, pre-scaled, while the first tiles are in flight.
+  const T* q = static_cast<const T*>(a.q);
   for (int i = tid; i < g * hd; i += NT) {
     const int r = i / hd, d = i - r * hd;
     qs[i] = to_f(q[b * a.q_sb + (h * g + r) * a.q_sh + d]) * a.scale;
@@ -123,67 +200,50 @@ __global__ void __launch_bounds__(NT) decode_kernel(DecodeArgs a) {
     row_m[tid] = NEG_INF;
     row_l[tid] = 0.f;
   }
-  float acc[ACC_PER_THREAD];
+  float acc[2 * PAIRS];
 #pragma unroll
-  for (int c = 0; c < ACC_PER_THREAD; ++c) acc[c] = 0.f;
+  for (int c = 0; c < 2 * PAIRS; ++c) acc[c] = 0.f;
 
-  constexpr int VEC = 16 / sizeof(T);        // elements per 16-byte load
-  const int vec_per_row = hd / VEC, n_vec = BK * vec_per_row;
-  const int t_begin = split * a.tiles_per_split * BK;
-  const int t_end = min(a.kv_len, t_begin + a.tiles_per_split * BK);
-  for (int t0 = t_begin; t0 < t_end; t0 += BK) {
-    __syncthreads();  // the previous tile is consumed; q and row state set
-    // Stage the tile as fp32.  Each thread issues all its 16-byte loads
-    // before it stores any, so the loads wait on device memory together
-    // rather than one after another.
-    for (int base = 0; base < n_vec; base += LOAD_BATCH * NT) {
-      uint4 kr[LOAD_BATCH], vr[LOAD_BATCH];
-#pragma unroll
-      for (int u = 0; u < LOAD_BATCH; ++u) {
-        const int i = base + u * NT + tid;
-        const int j = i / vec_per_row, c = i - j * vec_per_row, t = t0 + j;
-        kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
-        if (i < n_vec && t < a.T) {
-          kr[u] = *reinterpret_cast<const uint4*>(k + t * a.k_st + c * VEC);
-          vr[u] = *reinterpret_cast<const uint4*>(v + t * a.v_st + c * VEC);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < LOAD_BATCH; ++u) {
-        const int i = base + u * NT + tid;
-        if (i < n_vec) {
-          const int j = i / vec_per_row, c = i - j * vec_per_row;
-          store_vec(ks + j * ld + c * VEC, kr[u], T());
-          store_vec(vs + j * ld + c * VEC, vr[u], T());
-        }
-      }
+  static_assert(NSTAGE == 2, "the waits below count one tile behind");
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) {
+      cp_async_wait<1>();           // all but tile t + 1 have landed
+    } else {
+      cp_async_wait<0>();
     }
-    __syncthreads();
+    __syncthreads();  // tile t in place for all; q and row state set
+    const unsigned char* ks = smem + (t % NSTAGE) * 2 * tile_b;
+    const unsigned char* vs = ks + tile_b;
+    const int t0 = t_begin + t * BK;
     for (int i = tid; i < g * BK; i += NT) {
       const int r = i / BK, j = i - r * BK;
       const float* qr = qs + r * hd;
-      const float* kr = ks + j * ld;
+      const unsigned char* kr = ks + j * rb;
       float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;   // four chains
-      for (int d = 0; d < hd; d += 4) {
-        s0 = fmaf(qr[d], kr[d], s0);
-        s1 = fmaf(qr[d + 1], kr[d + 1], s1);
-        s2 = fmaf(qr[d + 2], kr[d + 2], s2);
-        s3 = fmaf(qr[d + 3], kr[d + 3], s3);
+      for (int c = 0; c < vpr; ++c) {
+        float e[VEC];
+        load16(e, kr + c * 16, T());
+        const float* qq = qr + c * VEC;
+#pragma unroll
+        for (int u = 0; u < VEC; u += 4) {
+          s0 = fmaf(qq[u], e[u], s0);
+          s1 = fmaf(qq[u + 1], e[u + 1], s1);
+          s2 = fmaf(qq[u + 2], e[u + 2], s2);
+          s3 = fmaf(qq[u + 3], e[u + 3], s3);
+        }
       }
       float s = (s0 + s1) + (s2 + s3);
       if (a.softcap > 0.f) s = a.softcap * tanhf(s / a.softcap);
-      ps[i] = (t0 + j < a.kv_len) ? s : NEG_INF;
+      ps[i] = (t0 + j < t_end) ? s : NEG_INF;
     }
     __syncthreads();
     for (int r = warp; r < g; r += NT / 32) {
-      float* pr = ps + r * BK;
-      const float s0 = pr[lane], s1 = pr[lane + 32];
+      const float s = ps[r * BK + lane];
       const float m_old = row_m[r];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
-      const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
-      pr[lane] = p0;
-      pr[lane + 32] = p1;
-      const float sum = warp_sum(p0 + p1);
+      const float m_new = fmaxf(m_old, warp_max(s));
+      const float p = expf(s - m_new);
+      ps[r * BK + lane] = p;
+      const float sum = warp_sum(p);
       if (lane == 0) {
         const float alpha = expf(m_old - m_new);
         row_alpha[r] = alpha;
@@ -193,84 +253,116 @@ __global__ void __launch_bounds__(NT) decode_kernel(DecodeArgs a) {
     }
     __syncthreads();
 #pragma unroll
-    for (int c = 0; c < ACC_PER_THREAD; ++c) {
-      const int i = tid + c * NT;
-      if (i < g * hd) {
-        const int r = i / hd, d = i - r * hd;
+    for (int c = 0; c < PAIRS; ++c) {
+      const int i = tid + c * NT;               // output pair
+      if (i < g * hd / 2) {
+        const int r = i / (hd / 2), d = 2 * (i - r * (hd / 2));
         const float* pr = ps + r * BK;
-        float s0 = 0.f, s1 = 0.f;                   // two chains
-        for (int j = 0; j < BK; j += 2) {
-          s0 = fmaf(pr[j], vs[j * ld + d], s0);
-          s1 = fmaf(pr[j + 1], vs[(j + 1) * ld + d], s1);
+        const unsigned char* vc = vs + d * sizeof(T);
+        float x0 = 0.f, x1 = 0.f;
+#pragma unroll 8
+        for (int j = 0; j < BK; ++j) {
+          const float2 vv = load2(vc + j * rb, T());
+          x0 = fmaf(pr[j], vv.x, x0);
+          x1 = fmaf(pr[j], vv.y, x1);
         }
-        acc[c] = fmaf(acc[c], row_alpha[r], s0 + s1);
+        acc[2 * c] = fmaf(acc[2 * c], row_alpha[r], x0);
+        acc[2 * c + 1] = fmaf(acc[2 * c + 1], row_alpha[r], x1);
       }
     }
+    __syncthreads();  // stage, probabilities and rescale consumed
+    if (t + NSTAGE < n_tiles) issue(t + NSTAGE);
   }
-  __syncthreads();
 
   if (a.n_split == 1) {
     T* o = static_cast<T*>(a.o);
 #pragma unroll
-    for (int c = 0; c < ACC_PER_THREAD; ++c) {
+    for (int c = 0; c < PAIRS; ++c) {
       const int i = tid + c * NT;
-      if (i < g * hd) {
-        const int r = i / hd, d = i - r * hd;
-        o[b * a.o_sb + (h * g + r) * a.o_sh + d] =
-            from_f<T>(acc[c] / fmaxf(row_l[r], 1e-30f));
+      if (i < g * hd / 2) {
+        const int r = i / (hd / 2), d = 2 * (i - r * (hd / 2));
+        const float l = fmaxf(row_l[r], 1e-30f);
+        T* od = o + b * a.o_sb + (h * g + r) * a.o_sh + d;
+        od[0] = from_f<T>(acc[2 * c] / l);
+        od[1] = from_f<T>(acc[2 * c + 1] / l);
       }
     }
-  } else {
-    const long long row0 = (long long)b * a.Hq + h * g;
-#pragma unroll
-    for (int c = 0; c < ACC_PER_THREAD; ++c) {
-      const int i = tid + c * NT;
-      if (i < g * hd) {
-        const int r = i / hd, d = i - r * hd;
-        a.part_acc[((row0 + r) * a.n_split + split) * hd + d] = acc[c];
-      }
-    }
-    if (tid < g) {
-      float* ml = a.part_ml + ((row0 + tid) * a.n_split + split) * 2;
-      ml[0] = row_m[tid];
-      ml[1] = row_l[tid];
-    }
+    return;
   }
-}
 
-// Merge the split partials of one (batch, q head) row: one thread per dim.
-template <typename T>
-__global__ void decode_combine(DecodeArgs a) {
-  const int row = blockIdx.x, d = threadIdx.x;
-  const int b = row / a.Hq, hq = row - b * a.Hq;
-  const float* ml = a.part_ml + (long long)row * a.n_split * 2;
-  float m = NEG_INF;
-  for (int s = 0; s < a.n_split; ++s) m = fmaxf(m, ml[2 * s]);
-  float l = 0.f, acc = 0.f;
-  for (int s = 0; s < a.n_split; ++s) {
-    const float w = expf(ml[2 * s] - m);
-    l = fmaf(ml[2 * s + 1], w, l);
-    acc = fmaf(a.part_acc[((long long)row * a.n_split + s) * a.hd + d], w, acc);
+  // Partials of this split, then a ticket; the last split merges.
+  const long long row0 = (long long)b * a.Hq + h * g;
+#pragma unroll
+  for (int c = 0; c < PAIRS; ++c) {
+    const int i = tid + c * NT;
+    if (i < g * hd / 2) {
+      const int r = i / (hd / 2), d = 2 * (i - r * (hd / 2));
+      float* pa = a.part_acc + ((row0 + r) * a.n_split + split) * hd + d;
+      pa[0] = acc[2 * c];
+      pa[1] = acc[2 * c + 1];
+    }
   }
+  if (tid < g) {
+    float* ml = a.part_ml + ((row0 + tid) * a.n_split + split) * 2;
+    ml[0] = row_m[tid];
+    ml[1] = row_l[tid];
+  }
+  // The barrier orders every thread's partials before thread 0's
+  // gpu-scope fence and ticket (a release, as one thread rather than 128
+  // fences); the fence after the ticket makes the last block's reads see
+  // every split's partials (an acquire).
+  __syncthreads();
+  int* ticket = a.tickets + b * a.Hkv + h;
+  if (tid == 0) {
+    int old;
+    asm volatile("fence.acq_rel.gpu;\n"
+                 "atom.relaxed.gpu.global.add.s32 %0, [%1], 1;\n"
+                 "fence.acq_rel.gpu;\n"
+                 : "=r"(old) : "l"(ticket) : "memory");
+    last_block = old == a.n_split - 1;
+  }
+  __syncthreads();
+  if (!last_block) return;
+
+  // Merge in one pass (online), the partials read past L1 (__ldcg).
   T* o = static_cast<T*>(a.o);
-  o[b * a.o_sb + hq * a.o_sh + d] = from_f<T>(acc / fmaxf(l, 1e-30f));
+  for (int i = tid; i < g * hd / 2; i += NT) {
+    const int r = i / (hd / 2), d = 2 * (i - r * (hd / 2));
+    const float* ml = a.part_ml + (row0 + r) * a.n_split * 2;
+    const float* pa = a.part_acc + (row0 + r) * a.n_split * hd + d;
+    float m = NEG_INF, l = 0.f, x0 = 0.f, x1 = 0.f;
+#pragma unroll 4
+    for (int s = 0; s < a.n_split; ++s) {
+      const float2 ms = __ldcg(reinterpret_cast<const float2*>(ml + 2 * s));
+      const float2 ps = __ldcg(reinterpret_cast<const float2*>(pa + s * hd));
+      const float m_new = fmaxf(m, ms.x);
+      const float wo = expf(m - m_new), wn = expf(ms.x - m_new);
+      l = l * wo + ms.y * wn;
+      x0 = x0 * wo + ps.x * wn;
+      x1 = x1 * wo + ps.y * wn;
+      m = m_new;
+    }
+    l = fmaxf(l, 1e-30f);
+    T* od = o + b * a.o_sb + (h * g + r) * a.o_sh + d;
+    od[0] = from_f<T>(x0 / l);
+    od[1] = from_f<T>(x1 / l);
+  }
+  if (tid == 0) *ticket = 0;
 }
 
 template <typename T>
 int launch(DecodeArgs a, cudaStream_t stream) {
-  const size_t smem = sizeof(float) *
-      (a.g * a.hd + 2 * BK * (a.hd + 1) + a.g * BK + 3 * a.g);
-  static bool opted_in = false;
-  if (!opted_in) {
-    cudaFuncSetAttribute(decode_kernel<T>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         227 * 1024);
-    opted_in = true;
+  const size_t smem = smem_bytes(a.g, a.hd, sizeof(T));
+  // Past 48 KB a launch needs the opt-in, which is per device: set it on
+  // the current one to what this call needs (the kernel's static shared
+  // memory counts against the same 227 KB).
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
   decode_kernel<T><<<dim3(a.B, a.Hkv, a.n_split), NT, smem, stream>>>(a);
-  if (a.n_split > 1) {
-    decode_combine<T><<<a.B * a.Hq, a.hd, 0, stream>>>(a);
-  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -278,18 +370,22 @@ int launch(DecodeArgs a, cudaStream_t stream) {
 
 extern "C" int flash_decode_launch(
     int is_bf16, const void* q, const void* k, const void* v, void* o,
-    float* part_acc, float* part_ml, int B, int Hq, int Hkv, int T, int hd,
-    const long long* strides, int kv_len, float softcap, int n_split,
-    int tiles_per_split, void* stream) {
+    float* part_acc, float* part_ml, int* tickets, int B, int Hq, int Hkv,
+    int T, int hd, const long long* strides, int kv_len, float softcap,
+    int n_split, int tiles_per_split, void* stream) {
   const int g = Hq / Hkv;
-  const int vec = is_bf16 ? 8 : 4;
-  if (Hq % Hkv != 0 || g * hd > MAX_GHD || hd > 1024 || hd % vec != 0 ||
-      kv_len < 1 || kv_len > T || n_split < 1) {
+  const int item = is_bf16 ? 2 : 4;
+  if (Hq % Hkv != 0 || g * hd > MAX_GHD || hd > 1024 || hd * item % 16 != 0 ||
+      kv_len < 1 || kv_len > T || n_split < 1 ||
+      (long long)(n_split - 1) * tiles_per_split * BK >= kv_len ||
+      (long long)n_split * tiles_per_split * BK < kv_len ||
+      smem_bytes(g, hd, item) > 227 * 1024 ||
+      (n_split > 1 && (part_acc == nullptr || tickets == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   DecodeArgs a;
   a.q = q; a.k = k; a.v = v; a.o = o;
-  a.part_acc = part_acc; a.part_ml = part_ml;
+  a.part_acc = part_acc; a.part_ml = part_ml; a.tickets = tickets;
   a.B = B; a.Hq = Hq; a.Hkv = Hkv; a.T = T; a.hd = hd; a.g = g;
   a.q_sb = strides[0]; a.q_sh = strides[1];
   a.k_sb = strides[2]; a.k_sh = strides[3]; a.k_st = strides[4];

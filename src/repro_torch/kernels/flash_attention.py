@@ -5,7 +5,9 @@ Replaces the Pallas TPU kernel ``repro.kernels.flash_attention.
 flash_attention`` (``src/repro/kernels/flash_attention.py:85``) with the same
 contract: causal with ``q_offset``, sliding window, optional ``kv_len``,
 tanh softcap, GQA.  The kernel is bound by operations (prefill is
-quadratic in the sequence); its design notes are in the CUDA source.
+quadratic in the sequence).  bf16 runs both products on the tensor cores
+(``wgmma``, K/V streamed by ``cp.async`` through a 2-stage ring), fp32 on the
+CUDA cores; the design notes are in the CUDA source.
 
 This wrapper launches the kernel or raises; it never computes on the CPU.
 ``repro_torch.kernels.ops`` sends CPU tensors to the plain version.
@@ -22,8 +24,18 @@ NAME = "flash_attention"
 HEAD_DIMS = (16, 32, 64, 128)   # instantiated in the CUDA source
 DTYPES = (torch.float32, torch.bfloat16)
 
+BLOCK_Q = 64        # query rows per block (one warpgroup in bf16)
+BLOCK_KV = 32       # keys per K/V tile of the bf16 kernel
+
 launches = 0        # kernel launches since the last reset (see ops)
 _fn = None
+
+
+def wgmma_smem_bytes(hd: int) -> int:
+    """Dynamic shared memory of the bf16 kernel at head dim ``hd``, as the
+    CUDA source's ``wgmma_smem_bytes`` reckons it: the Q tile and two stages
+    of K and V tiles, in bf16, and 1024 bytes to align the swizzled tiles."""
+    return (BLOCK_Q + 4 * BLOCK_KV) * hd * 2 + 1024
 
 
 def _launcher():
@@ -41,11 +53,6 @@ def _launcher():
 
 
 def _check(q, k, v):
-    if not (q.is_cuda and k.is_cuda and v.is_cuda):
-        raise ValueError("flash_attention kernel needs CUDA tensors; "
-                         f"got {q.device}, {k.device}, {v.device}")
-    if not (q.device == k.device == v.device):
-        raise ValueError("q, k, v must be on one device")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"dtypes must match and be fp32 or bf16: "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
@@ -62,6 +69,16 @@ def _check(q, k, v):
     for t in (q, k, v):
         if t.stride(-1) != 1:
             raise ValueError("last dim must be contiguous (stride 1)")
+    # The bf16 kernel copies Q, K and V rows in 16-byte pieces.
+    if q.dtype == torch.bfloat16:
+        for t in (q, k, v):
+            if t.data_ptr() % 16 or any(st * 2 % 16 for st in t.stride()[:3]):
+                raise ValueError("bf16 Q/K/V rows must be 16-byte aligned")
+    if not (q.is_cuda and k.is_cuda and v.is_cuda):
+        raise ValueError("flash_attention kernel needs CUDA tensors; "
+                         f"got {q.device}, {k.device}, {v.device}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k, v must be on one device")
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,

@@ -158,6 +158,88 @@ def test_flash_attention_jamba_prefill_shape(cuda):
             atol=TOL[dtype])
 
 
+def model_views(seed, B, S, N, hd, dtype, device):
+    """A (B,S,N,hd) activation or cache seen as the model passes it: the
+    (B,N,S,hd) ``transpose(1, 2)`` view."""
+    return randn(seed, (B, S, N, hd), dtype, device).transpose(1, 2)
+
+
+@pytest.mark.parametrize("hd", [64, 128], ids=["llama", "jamba"])
+def test_attention_kernels_at_the_serving_shapes(hd, cuda):
+    """bf16 prefill (4 x 256 tokens, 32 q heads, 8 KV heads) and a decode
+    step against the (4, 512, 8, hd) cache at kv_len 272, all as views."""
+    q = model_views(70, 4, 256, 32, hd, "bfloat16", cuda)
+    k = model_views(71, 4, 256, 8, hd, "bfloat16", cuda)
+    v = model_views(72, 4, 256, 8, hd, "bfloat16", cuda)
+    torch.testing.assert_close(
+        ops.flash_attention(q, k, v, causal=True).float(),
+        ref.attention_ref(q, k, v, causal=True).float(),
+        rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
+    qd = model_views(73, 4, 1, 32, hd, "bfloat16", cuda)
+    kc = model_views(74, 4, 512, 8, hd, "bfloat16", cuda)
+    vc = model_views(75, 4, 512, 8, hd, "bfloat16", cuda)
+    torch.testing.assert_close(
+        ops.flash_decode(qd, kc, vc, 272).float(),
+        ref.attention_ref(qd, kc, vc, causal=False, kv_len=272).float(),
+        rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_attention_offset_and_kv_len_bf16(hd, cuda):
+    """A chunk of 80 queries at q_offset 100 against 256 keys of which 170
+    are valid, causal and not, with a window and a softcap."""
+    q = model_views(80, 2, 80, 8, hd, "bfloat16", cuda)
+    k = model_views(81, 2, 256, 2, hd, "bfloat16", cuda)
+    v = model_views(82, 2, 256, 2, hd, "bfloat16", cuda)
+    for kw in (dict(causal=True, q_offset=100, kv_len=170),
+               dict(causal=False, q_offset=100, kv_len=170),
+               dict(causal=True, q_offset=100, kv_len=170, window=40,
+                    softcap=30.0)):
+        torch.testing.assert_close(
+            ops.flash_attention(q, k, v, **kw).float(),
+            ref.attention_ref(q, k, v, **kw).float(),
+            rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_one_split_and_the_most_splits(dtype, cuda):
+    from repro_torch.kernels.decode_attention import split_plan
+    B, Hkv, T, hd = 4, 8, 512, 64
+    plans = {n: split_plan(B, Hkv, n)[0] for n in range(1, T + 1)}
+    most = max(plans, key=plans.get)
+    assert plans[1] == 1 and plans[most] > 1
+    qd = model_views(90, B, 1, 32, hd, dtype, cuda)
+    kc = model_views(91, B, T, Hkv, hd, dtype, cuda)
+    vc = model_views(92, B, T, Hkv, hd, dtype, cuda)
+    for kv_len in (1, most):
+        torch.testing.assert_close(
+            ops.flash_decode(qd, kc, vc, kv_len).float(),
+            ref.attention_ref(qd, kc, vc, causal=False,
+                              kv_len=kv_len).float(),
+            rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_flash_decode_repeats_bitwise(cuda):
+    """The merge's tickets are back at zero after every call: the same call
+    twice, and two batch shapes in turn, give bitwise-equal outputs."""
+    def inputs(seed, B):
+        return (model_views(seed, B, 1, 32, 128, "bfloat16", cuda),
+                model_views(seed + 1, B, 512, 8, 128, "bfloat16", cuda),
+                model_views(seed + 2, B, 512, 8, 128, "bfloat16", cuda))
+
+    big, small = inputs(100, 4), inputs(110, 2)
+    first = ops.flash_decode(*big, 272)
+    assert torch.equal(ops.flash_decode(*big, 272), first)
+    first_small = ops.flash_decode(*small, 500)
+    for _ in range(3):
+        assert torch.equal(ops.flash_decode(*big, 272), first)
+        assert torch.equal(ops.flash_decode(*small, 500), first_small)
+    torch.testing.assert_close(
+        first.float(), ref.attention_ref(*big, causal=False,
+                                         kv_len=272).float(),
+        rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = torch.zeros((1, 4, 8, 48), device=cuda)          # head_dim 48
     with pytest.raises(ValueError, match="head_dim"):
