@@ -6,11 +6,13 @@
 Phases, each of which must pass (any failure exits non-zero):
   1. the card's name and power limit; TF32 off for fp32 products;
   2. build the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
-     nvcc per source, started together); the attention kernels' registers,
-     spills (none allowed) and shared memory, and the HGMMA instructions of
-     the bf16 ``flash_attention`` in its SASS;
+     nvcc per source, started together); every entry function's
+     registers, spills (none allowed) and shared memory, the HGMMA
+     instructions of the bf16 ``flash_attention`` and the TF32 HMMA of the
+     ``mlstm_scan`` prefill in their SASS;
   3. hold each kernel against its plain PyTorch version on the card, fp32
-     and bf16, over the repo's sweeps and the serving paths' own shapes;
+     and bf16, over the repo's sweeps and the serving paths' own shapes
+     (``mlstm_scan``: y, C and the normalizer n);
   4. full-width llama3.2-1b (16 layers) in fp32: the kernel path against
      the plain path on the prefill logits, 8 decode steps and the greedy
      tokens;
@@ -33,9 +35,11 @@ Phases, each of which must pass (any failure exits non-zero):
      mamba layer went through ``mamba_scan``, both attention layers
      through the attention kernels; then its layers as in phase 9;
  11. one ``flash_attention`` and one ``flash_decode`` call under
-     torch.profiler, each exactly one device kernel; then one
-     ``{"kernels": [...]}`` line with each kernel's time, bound, plain and
-     library times at the serving shapes.
+     torch.profiler, each exactly one device kernel, and each scan call
+     (one kernel; two for the ``mlstm_scan`` prefill: scores, then the
+     scan); then one ``{"kernels": [...]}`` line with each kernel's time
+     (events and profiler), bound, plain and library times at the serving
+     shapes, beside the timing method's floor.
 The last line is ``{"ok": true, "device": {...}}``.  Without a card, or
 outside a checkout, the script exits non-zero and prints no result.
 """
@@ -118,6 +122,11 @@ JAMBA_FP32_LAYERS, JAMBA_SERVE_LAYERS = 8, 16
 # Published H100 SXM peaks (NVIDIA data sheet, dense, 700 W).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# fp32 products on the tensor cores as 3xTF32: three TF32 products each.
+TF32X3_FLOPS = 495e12 / 3
+# The special-function units: 16 MUFU.EX2 per SM a clock, 132 SMs, at the
+# 1.98 GHz behind the 67 TFLOP/s fp32 figure (128 lanes x 2 x 132 SMs).
+SFU_EXPS_PER_S = 132 * 16 * 1.98e9
 
 
 def check(cond: bool, msg: str) -> None:
@@ -157,33 +166,38 @@ def mlstm_bound(B, S, H, hd, dtype="float32"):
     i, f and c0 read once, y and c_last written once, and the flops of the
     recurrence, the least work that computes the function: per token and
     head, 2·hd² for the update C += i·k vᵀ and 2·hd² for y = q·C.  (The
-    chunkwise form adds the causal c×c score and P·V terms on top.)"""
+    chunkwise form adds the causal c×c score and P·V terms on top.)  The
+    kernel computes its products in fp32 accuracy on the tensor cores as
+    3xTF32 (bf16 inputs converted to fp32), so the operations take at
+    least flops / (495/3 TFLOP/s)."""
     itemsize = 2 if dtype == "bfloat16" else 4
     nbytes = itemsize * (4 * B * S * H * hd + 2 * B * S * H) \
         + 2 * 4 * B * H * hd * hd
     flops = 4.0 * B * S * H * hd * hd
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = flops / TF32X3_FLOPS * 1e3
     if t_bytes >= t_ops:
         return t_bytes, "bytes", nbytes, flops
     return t_ops, "operations", nbytes, flops
 
 
 def mamba_bound(B, S, di, N, dtype="float32"):
-    """(bound_ms, bound_by, bytes, flops) for one mamba_scan call: u, dt,
-    b, c, a and h0 read once, y and h_last written once, and 8 operations
-    per (token, channel, state) of the recurrence: dt·a, its exp (counted
-    as one fp32 operation: the table of peaks has no special-function
-    rate), exp·h, dt·b, ·u, the add, and the multiply-add of y = h·c."""
+    """(bound_ms, bound_by, bytes, flops) for one mamba_scan call: the
+    largest of three times.  Bytes: u, dt, b, c, a and h0 read once, y and
+    h_last written once.  Operations: 8 per (token, channel, state) of the
+    recurrence (dt·a, its exp, exp·h, dt·b, ·u, the add, and the
+    multiply-add of y = h·c) at the fp32 rate.  Special functions: one exp
+    per (token, channel, state), each one MUFU.EX2 on the SM's 16
+    special-function lanes (``SFU_EXPS_PER_S``)."""
     itemsize = 2 if dtype == "bfloat16" else 4
     nbytes = itemsize * (3 * B * S * di + 2 * B * S * N) \
         + 4 * di * N + 2 * 4 * B * di * N
     flops = 8.0 * B * S * di * N
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
-    if t_bytes >= t_ops:
-        return t_bytes, "bytes", nbytes, flops
-    return t_ops, "operations", nbytes, flops
+    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": flops / PEAK_FLOPS["float32"] * 1e3,
+             "special-function": B * S * di * N / SFU_EXPS_PER_S * 1e3}
+    by = max(times, key=times.get)
+    return times[by], by, nbytes, flops
 
 
 def max_err(a, b) -> float:
@@ -387,20 +401,18 @@ def run(torch) -> int:
     # -- 2. build ------------------------------------------------------------
     build_s = _build.build_all()
     log(f"[build] {list(_build.KERNELS)} in {build_s:.1f} s")
+    # The four kernels redesigned for Hopper: per entry function its
+    # registers, spills and shared memory (dynamic, from the wrappers'
+    # reckoning, beside ptxas's static), no spills allowed; the bf16
+    # attention's products on the tensor cores (HGMMA in its SASS), and the
+    # mLSTM prefill's on them as 3xTF32 (HMMA .TF32).
+    from repro_torch.kernels import (decode_attention, flash_attention,
+                                     mamba_scan, mlstm_scan)
     for name in _build.KERNELS:
-        lines = [ln.strip() for ln in _build.build_log(name).splitlines()
-                 if "registers" in ln or "spill" in ln]
-        for line in dict.fromkeys(lines):
-            log(f"[ptxas {name}] {line}")
-    # The two attention kernels redesigned for Hopper: per entry function
-    # its registers, spills and shared memory (dynamic, from the wrappers'
-    # reckoning, beside ptxas's static), no spills allowed; and the bf16
-    # attention's products on the tensor cores (HGMMA in its SASS).
-    from repro_torch.kernels import decode_attention, flash_attention
-    for name in ("flash_attention", "flash_decode"):
         for fn, (regs, st, ld, smem) in ptxas_report(
                 _build.build_log(name)).items():
             dyn = ""
+            param = re.search(r"Li(\d+)E", fn)
             if "attn_wgmma_kernel" in fn:
                 hd = int(fn.split("attn_wgmma_kernelILi")[1].split("E")[0])
                 dyn = f", {flash_attention.wgmma_smem_bytes(hd)} B dynamic"
@@ -408,6 +420,14 @@ def run(torch) -> int:
                 item = 2 if "bfloat16" in fn else 4
                 dyn = (f", {decode_attention.smem_bytes(4, 128, item)} B "
                        f"dynamic at g 4, hd 128")
+            elif name == "mlstm_scan" and "scan_kernel" in fn and param:
+                et = int(param.group(1))
+                dyn = (f", {mlstm_scan.scan_smem_bytes(MLSTM_HD, et)} B "
+                       f"dynamic at hd {MLSTM_HD}, slab {et}")
+            elif name == "mamba_scan" and "scan_kernel" in fn and param:
+                smem_dyn = mamba_scan.scan_smem_bytes(
+                    int(param.group(1)), 2 if "bfloat16" in fn else 4)
+                dyn = f", {smem_dyn} B dynamic"
             log(f"[ptxas {name}] {fn}: {regs} registers, spill stores {st} "
                 f"B, spill loads {ld} B, {smem} B static shared{dyn}")
             check(st == 0 and ld == 0, f"{fn} spills ({st} B, {ld} B)")
@@ -417,6 +437,11 @@ def run(torch) -> int:
     check(any("tnspB" in f for f in hgmma) and
           any("tnspB" not in f for f in hgmma),
           "flash_attention's bf16 kernel issues no HGMMA for one product")
+    hmma = sass_forms(_build.lib_path("mlstm_scan"), "HMMA")
+    log(f"[sass mlstm_scan] {sum(hmma.values())} HMMA instructions: "
+        f"{json.dumps(hmma)}")
+    check(any(".TF32" in f for f in hmma),
+          "mlstm_scan's prefill issues no TF32 HMMA")
 
     def randn(seed, shape, dtype):
         g = torch.Generator(device=dev)
@@ -425,7 +450,8 @@ def run(torch) -> int:
 
     # -- 3. kernels against their plain versions -------------------------------
     errs = {"flash_attention": {}, "flash_decode": {}, "mlstm_scan": {},
-            "mlstm_scan_state": {}, "flash_attention_hd128": {},
+            "mlstm_scan_state": {}, "mlstm_scan_n": {},
+            "flash_attention_hd128": {},
             "flash_decode_hd128": {}, "mamba_scan": {},
             "mamba_scan_state": {}}
 
@@ -451,20 +477,22 @@ def run(torch) -> int:
         f = torch.sigmoid(randn(seed + 4, (B, S, H), "float32") + 2.0)
         return (q, k.to(DT[dtype]), v, i.to(DT[dtype]), f.to(DT[dtype]))
 
-    def hold_mlstm(inp, c0, dtype, what, chunk=128, main_shape=False,
+    def hold_mlstm(inp, c0, n0, dtype, what, chunk=128, main_shape=False,
                    in_place=False):
-        """One mlstm_scan call against ref.mlstm_ref: y at TOL, the state at
-        MLSTM_C_TOL.  ``in_place`` passes out=c0, as the decode step does."""
-        B, _, H, hd = inp[0].shape
-        want_y, want_c, _ = ref.mlstm_ref(*inp, c0, torch.zeros(
-            (B, H, hd), device=dev))
-        state = c0.clone() if in_place else c0
-        y, c_last = ops.mlstm(*inp, state, chunk=chunk,
-                              out=state if in_place else None)
-        check(c_last is state or not in_place,
-              "mlstm_scan out= is the returned state")
+        """One mlstm_scan call that carries the normalizer, against
+        ref.mlstm_ref: y at TOL, C and n at MLSTM_C_TOL.  ``in_place``
+        passes out=c0 and n_out=n0, as the decode step does."""
+        want_y, want_c, want_n = ref.mlstm_ref(*inp, c0, n0)
+        c_in, n_in = (c0.clone(), n0.clone()) if in_place else (c0, n0)
+        y, c_last, n_last = ops.mlstm(
+            *inp, c_in, n0=n_in, chunk=chunk, out=c_in if in_place else None,
+            n_out=n_in if in_place else None)
+        check((c_last is c_in and n_last is n_in) or not in_place,
+              "mlstm_scan out= and n_out= are the returned states")
         hold("mlstm_scan", y, want_y.to(y.dtype), dtype, what, main_shape)
         hold("mlstm_scan_state", c_last, want_c, dtype, what, main_shape,
+             tol=MLSTM_C_TOL[dtype])
+        hold("mlstm_scan_n", n_last, want_n, dtype, what, main_shape,
              tol=MLSTM_C_TOL[dtype])
         return y, c_last
 
@@ -553,11 +581,13 @@ def run(torch) -> int:
         for case in MLSTM_SWEEP:
             B, S, H, hd, chunk = case
             hold_mlstm(mlstm_inputs(30, B, S, H, hd, dtype),
-                       torch.zeros((B, H, hd, hd), device=dev), dtype,
+                       torch.zeros((B, H, hd, hd), device=dev),
+                       randn(35, (B, H, hd), "float32") * 0.3, dtype,
                        str(case), chunk=chunk)
         inp = mlstm_inputs(40, 2, 200, 2, 64, dtype)
         c0 = randn(45, (2, 2, 64, 64), "float32") * 0.3
-        y, c_last = hold_mlstm(inp, c0, dtype, "ragged (2,200,2,64)")
+        y, c_last = hold_mlstm(inp, c0, randn(46, (2, 2, 64), "float32"),
+                               dtype, "ragged (2,200,2,64)")
         y1, c1 = ops.mlstm(*(t[:, :77] for t in inp), c0)
         y2, c2 = ops.mlstm(*(t[:, 77:] for t in inp), c1)
         hold("mlstm_scan", torch.cat([y1, y2], dim=1), y, dtype,
@@ -568,11 +598,13 @@ def run(torch) -> int:
         hold_mlstm(mlstm_inputs(50, BATCH, PROMPT, H, MLSTM_HD, dtype,
                                 k_scale=MLSTM_HD ** -0.5),
                    torch.zeros((BATCH, H, MLSTM_HD, MLSTM_HD), device=dev),
+                   torch.zeros((BATCH, H, MLSTM_HD), device=dev),
                    dtype, f"prefill ({BATCH},{PROMPT},{H},{MLSTM_HD})",
                    main_shape=True)
         hold_mlstm(mlstm_inputs(60, BATCH, 1, H, MLSTM_HD, dtype,
                                 k_scale=MLSTM_HD ** -0.5),
                    randn(65, (BATCH, H, MLSTM_HD, MLSTM_HD), "float32") * 0.1,
+                   randn(66, (BATCH, H, MLSTM_HD), "float32") * 0.1,
                    dtype, f"decode ({BATCH},1,{H},{MLSTM_HD}) in place",
                    main_shape=True, in_place=True)
         n_checks += len(MLSTM_SWEEP) + 4
@@ -901,8 +933,8 @@ def run(torch) -> int:
     # What the same method reads for one trivial kernel: the launch and
     # event overhead under every time below.
     one = torch.zeros(1, device=dev)
-    log(f"[timing] one-element add_ by the same method: "
-        f"{cold_ms(lambda: one.add_(1)):.5f} ms")
+    floor_ms = cold_ms(lambda: one.add_(1))
+    log(f"[timing] one-element add_ by the same method: {floor_ms:.5f} ms")
 
     def attention_times(hd, seed):
         """flash_attention (prefill) and flash_decode (one step at kv_len)
@@ -964,6 +996,31 @@ def run(torch) -> int:
         return [e.name for e in prof.events()
                 if e.device_type == torch.autograd.DeviceType.CUDA]
 
+    def profiled_ms(fn, names, calls=20):
+        """Mean device ms of one call of ``fn`` by torch.profiler: the
+        summed durations of the activities ``names`` (one call's, from
+        ``device_kernels``), each call after a cold-L2 flush."""
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and e.name in names)
+        return us / calls / 1e3
+
+    def scan_call(fn, want_kernels, what):
+        """Event ms, profiler ms and device kernels of one scan call; the
+        call must run ``want_kernels`` device kernels."""
+        names = device_kernels(fn)
+        log(f"[profile] one {what} call: device activities {names}")
+        check(len(names) == want_kernels,
+              f"{what} ran {len(names)} device activities in one call, not "
+              f"{want_kernels}: {names}")
+        return cold_ms(fn), profiled_ms(fn, set(names)), len(names)
+
     qp = randn(170, (BATCH, PROMPT, 32, JHD), "bfloat16").transpose(1, 2)
     kp = randn(171, (BATCH, PROMPT, 8, JHD), "bfloat16").transpose(1, 2)
     qd = randn(172, (BATCH, 1, 32, JHD), "bfloat16").transpose(1, 2)
@@ -1010,16 +1067,23 @@ def run(torch) -> int:
                              "(query, key) pair",
         })
     # mlstm_scan at the served shapes and dtype: mlstm_apply casts q, k, v
-    # and the gates to fp32, so the kernel runs on fp32 inputs; the prefill
-    # starts from a zero state, a decode step updates the cache in place.
+    # and the gates to fp32, so the kernel runs on fp32 inputs and carries
+    # the normalizer; the prefill starts from a zero state (score kernel +
+    # scan kernel), a decode step updates C and n in place (step kernel).
     H, hd = xcfg.n_heads, MLSTM_HD
     pre = mlstm_inputs(70, BATCH, PROMPT, H, hd, "float32", hd ** -0.5)
     c_pre = torch.zeros((BATCH, H, hd, hd), device=dev)
+    n_pre = torch.zeros((BATCH, H, hd), device=dev)
     step = mlstm_inputs(80, BATCH, 1, H, hd, "float32", hd ** -0.5)
     c_step = randn(85, (BATCH, H, hd, hd), "float32") * 0.1
-    n_pre = torch.zeros((BATCH, H, hd), device=dev)
+    n_step = randn(86, (BATCH, H, hd), "float32") * 0.1
     ml_pre = mlstm_bound(BATCH, PROMPT, H, hd)
     ml_step = mlstm_bound(BATCH, 1, H, hd)
+    pre_ms, pre_prof, pre_k = scan_call(
+        lambda: ops.mlstm(*pre, c_pre, n0=n_pre), 2, "mlstm_scan prefill")
+    step_ms, step_prof, step_k = scan_call(
+        lambda: ops.mlstm(*step, c_step, n0=n_step, out=c_step,
+                          n_out=n_step), 1, "mlstm_scan decode")
     kernels.append({
         "name": "mlstm_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mlstm_scan.cu",
@@ -1030,7 +1094,9 @@ def run(torch) -> int:
         "max_abs_err_fp32": errs["mlstm_scan"]["float32"],
         "max_abs_err_state": errs["mlstm_scan_state"]["bfloat16"],
         "max_abs_err_state_fp32": errs["mlstm_scan_state"]["float32"],
-        "ms": cold_ms(lambda: ops.mlstm(*pre, c_pre)),
+        "max_abs_err_n": errs["mlstm_scan_n"]["bfloat16"],
+        "max_abs_err_n_fp32": errs["mlstm_scan_n"]["float32"],
+        "ms": pre_ms, "profiled_ms": pre_prof, "device_kernels": pre_k,
         "plain_ms": cold_ms(lambda: ref.mlstm_ref(*pre, c_pre, n_pre),
                             iters=5, warmup=1),
         "bound_ms": ml_pre[0], "bound_by": ml_pre[1],
@@ -1038,18 +1104,20 @@ def run(torch) -> int:
         "library_note": "no single PyTorch call computes the chunkwise "
                         "mLSTM",
         "shape": f"prefill q,k,v ({BATCH},{PROMPT},{H},{hd}) fp32 chunk "
-                 f"128, zero c0",
+                 f"128, zero c0 and n0",
         "bytes": ml_pre[2], "flops": ml_pre[3],
-        "decode_ms": cold_ms(lambda: ops.mlstm(*step, c_step, out=c_step)),
+        "decode_ms": step_ms, "decode_profiled_ms": step_prof,
+        "decode_device_kernels": step_k,
         "decode_plain_ms": cold_ms(lambda: ref.mlstm_ref(*step, c_step,
-                                                         n_pre)),
+                                                         n_step)),
         "decode_bound_ms": ml_step[0], "decode_bound_by": ml_step[1],
-        "decode_shape": f"decode q,k,v ({BATCH},1,{H},{hd}) fp32, state "
+        "decode_shape": f"decode q,k,v ({BATCH},1,{H},{hd}) fp32, C and n "
                         f"updated in place",
         "decode_bytes": ml_step[2], "decode_flops": ml_step[3],
-        "bound_formula": "max(bytes / 3.35e12 B/s, flops / 67e12 FLOP/s "
-                         "fp32); bytes = q,k,v,i,f,c0 read once + y, "
-                         "c_last written; flops = 4*B*S*H*hd^2 (the "
+        "timing_floor_ms": floor_ms,
+        "bound_formula": "max(bytes / 3.35e12 B/s, flops / (495e12 / 3) "
+                         "FLOP/s, 3xTF32); bytes = q,k,v,i,f,c0 read once "
+                         "+ y, c_last written; flops = 4*B*S*H*hd^2 (the "
                          "recurrence: k v^T into C and q C per token)",
     })
     # mamba_scan at the served shapes and dtype: mamba_apply casts u, dt, b
@@ -1059,6 +1127,11 @@ def run(torch) -> int:
     step = mamba_inputs(160, BATCH, 1, JDI, JN, "float32", 0.5)
     mb_pre = mamba_bound(BATCH, PROMPT, JDI, JN)
     mb_step = mamba_bound(BATCH, 1, JDI, JN)
+    pre_ms, pre_prof, _ = scan_call(lambda: ops.selective_scan(*pre), 1,
+                                    "mamba_scan prefill")
+    step_ms, step_prof, _ = scan_call(
+        lambda: ops.selective_scan(*step, out=step[-1]), 1,
+        "mamba_scan decode")
     kernels.append({
         "name": "mamba_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
@@ -1069,26 +1142,31 @@ def run(torch) -> int:
         "max_abs_err_fp32": errs["mamba_scan"]["float32"],
         "max_abs_err_state": errs["mamba_scan_state"]["bfloat16"],
         "max_abs_err_state_fp32": errs["mamba_scan_state"]["float32"],
-        "ms": cold_ms(lambda: ops.selective_scan(*pre)),
+        "ms": pre_ms, "profiled_ms": pre_prof,
         "plain_ms": cold_ms(lambda: ref.mamba_scan_ref(*pre), iters=5,
                             warmup=1),
-        "bound_ms": mb_pre[0], "bound_by": mb_pre[1],
+        # The special-function units' exps are operations at their own
+        # peak rate: the line names the term in "bound_term".
+        "bound_ms": mb_pre[0],
+        "bound_by": "bytes" if mb_pre[1] == "bytes" else "operations",
+        "bound_term": mb_pre[1],
         "library_ms": None,
         "library_note": "no single PyTorch call computes a selective scan",
         "shape": f"prefill u,dt ({BATCH},{PROMPT},{JDI}) N {JN} fp32, zero "
                  f"h0",
         "bytes": mb_pre[2], "flops": mb_pre[3],
-        "decode_ms": cold_ms(lambda: ops.selective_scan(*step,
-                                                        out=step[-1])),
+        "decode_ms": step_ms, "decode_profiled_ms": step_prof,
         "decode_plain_ms": cold_ms(lambda: ref.mamba_scan_ref(*step)),
         "decode_bound_ms": mb_step[0], "decode_bound_by": mb_step[1],
         "decode_shape": f"decode u,dt ({BATCH},1,{JDI}) N {JN} fp32, state "
                         f"updated in place",
         "decode_bytes": mb_step[2], "decode_flops": mb_step[3],
+        "timing_floor_ms": floor_ms,
         "bound_formula": "max(bytes / 3.35e12 B/s, flops / 67e12 FLOP/s "
-                         "fp32); bytes = u,dt,b,c,a,h0 read once + y, "
+                         "fp32, exps / (132*16*1.98e9 /s) special-function "
+                         "units); bytes = u,dt,b,c,a,h0 read once + y, "
                          "h_last written; flops = 8*B*S*di*N (the "
-                         "recurrence, its exp counted as one operation)",
+                         "recurrence); exps = B*S*di*N",
     })
     del flush
 

@@ -5,7 +5,8 @@ Replaces the Pallas TPU kernel ``repro.kernels.mamba_scan.mamba_scan``
 (``src/repro/kernels/mamba_scan.py:55``): per batch row and channel the
 recurrence ``h_t = exp(dt_t·a) ⊙ h_{t-1} + (dt_t·b_t)·u_t``,
 ``y_t = h_t · c_t``, carrying the fp32 state across the whole sequence.
-The kernel is bound by the bytes of u, dt, y and the state; its design
+The kernel is bound by the bytes of u, dt, y and the state and by the
+special-function units' exps, which take about the same time; its design
 notes are in the CUDA source.
 
 This wrapper launches the kernel or raises; it never computes on the CPU.
@@ -21,7 +22,11 @@ from . import _build
 
 NAME = "mamba_scan"
 STATE_SIZES = (4, 8, 16)      # N, instantiated in the CUDA source
+CHANNELS = 64                 # channels per block: di must be a multiple
 DTYPES = (torch.float32, torch.bfloat16)
+
+STEPS = 16                    # time steps of a staged chunk (prefill)
+STAGES = 3                    # chunks in the prefill's cp.async ring
 
 launches = 0        # kernel launches since the last reset (see ops)
 _fn = None
@@ -37,6 +42,15 @@ def _launcher():
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def scan_smem_bytes(N: int, itemsize: int) -> int:
+    """Dynamic shared memory of the prefill kernel (``scan_smem_bytes`` in
+    the CUDA source): STAGES slots of u, dt ([STEPS][CHANNELS]) and b, c
+    ([STEPS][N]) in the inputs' dtype, and the fp32 partial y of each of a
+    channel's 4 lanes."""
+    return STAGES * (2 * STEPS * CHANNELS + 2 * STEPS * N) * itemsize \
+        + STEPS * 4 * (CHANNELS + 8) * 4
 
 
 def _check(u, dt, a, b, c, h0, out):
@@ -63,11 +77,22 @@ def _check(u, dt, a, b, c, h0, out):
     if S < 1 or N not in STATE_SIZES:
         raise ValueError(f"need S >= 1 and a state size in {STATE_SIZES}: "
                          f"S {S}, N {N}")
+    if di % CHANNELS:
+        raise ValueError(f"di {di} must be a multiple of {CHANNELS}")
     if any(t.stride(-1) != 1 for t in (u, dt, b, c)):
         raise ValueError("last dim of u, dt, b, c must be contiguous "
                          "(stride 1)")
+    # The prefill copies rows of u and dt in 16-byte and of b and c in
+    # 4-byte pieces (cp.async); the state and a are read as vectors.
+    for t, align in ((u, 16), (dt, 16), (b, 4), (c, 4)):
+        if t.data_ptr() % align or any(s * t.element_size() % align
+                                       for s in t.stride()[:2]):
+            raise ValueError("u and dt must be 16-byte and b, c 4-byte "
+                             "aligned (pointer and batch/seq strides)")
     if not all(t.is_contiguous() for t in ts[5:] + (a,)):
         raise ValueError("a, h0 and out must be contiguous")
+    if any(t.data_ptr() % 16 for t in ts[5:] + (a,)):
+        raise ValueError("a, h0 and out must be 16-byte aligned")
 
 
 def mamba_scan(u, dt, a, b, c, h0, *, out=None):
@@ -75,8 +100,10 @@ def mamba_scan(u, dt, a, b, c, h0, *, out=None):
 
     Returns (y (B,S,di) in u's dtype, h_last (B,di,N) fp32), as the TPU
     kernel does.  u, dt, b and c may have any batch and sequence strides
-    with a unit last dim.  ``out`` (fp32, contiguous) receives h_last and
-    may be ``h0`` itself: the decode step then updates the cache in place.
+    with a unit last dim (16-byte aligned for u and dt, 4-byte for b and
+    c); di must be a multiple of 64.  ``out`` (fp32, contiguous) receives
+    h_last and may be ``h0`` itself: the decode step then updates the
+    cache in place.
     """
     global launches
     _check(u, dt, a, b, c, h0, out)

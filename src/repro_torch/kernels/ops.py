@@ -73,21 +73,30 @@ def selective_scan(u, dt, a, b, c, h0, *, out=None):
     return mamba_scan.mamba_scan(u, dt, a, b, c, h0, out=out)
 
 
-def mlstm(q, k, v, i_gate, f_gate, c0, *, chunk=mlstm_scan.DEFAULT_CHUNK,
-          out=None):
+def mlstm(q, k, v, i_gate, f_gate, c0, *, n0=None,
+          chunk=mlstm_scan.DEFAULT_CHUNK, out=None, n_out=None):
     """The TPU kernel ``mlstm_scan``'s contract: q,k,v (B,S,H,hd), i,f
     (B,S,H) in (0,1), c0 (B,H,hd,hd) fp32 -> (y (B,S,H,hd) in q's dtype,
-    c_last fp32).  ``out``, when given, receives c_last (it may be c0
-    itself) and is returned."""
+    c_last fp32).  With ``n0`` (B,H,hd) fp32 it also returns n_last, the
+    normalizer: C's update with v = 1.  ``out`` and ``n_out``, when given,
+    receive c_last and n_last (they may be c0 and n0 themselves) and are
+    returned."""
     if _on_cpu(q):
+        if n0 is None and n_out is not None:
+            raise ValueError("n_out needs n0")
         B, _, H, hd = q.shape
-        n0 = torch.zeros((B, H, hd), dtype=torch.float32, device=q.device)
-        y, c_last, _ = ref.mlstm_ref(q, k, v, i_gate, f_gate, c0, n0)
+        n_in = n0 if n0 is not None else torch.zeros(
+            (B, H, hd), dtype=torch.float32, device=q.device)
+        y, c_last, n_last = ref.mlstm_ref(q, k, v, i_gate, f_gate, c0, n_in)
         if out is not None:
             c_last = out.copy_(c_last)
-        return y.to(q.dtype), c_last
+        if n0 is None:
+            return y.to(q.dtype), c_last
+        if n_out is not None:
+            n_last = n_out.copy_(n_last)
+        return y.to(q.dtype), c_last, n_last
     return mlstm_scan.mlstm_scan(q, k, v, i_gate, f_gate, c0, chunk=chunk,
-                                 out=out)
+                                 out=out, n0=n0, n_out=n_out)
 
 
 _KERNELS = (_fa, decode_attention, mlstm_scan, mamba_scan)

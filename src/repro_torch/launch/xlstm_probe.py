@@ -1,5 +1,5 @@
 """How far two fp32 evaluations of xlstm-125m part when they run free, and
-what the normalizer beside ``mlstm_scan`` costs the host.
+what one mLSTM decode call of the kernel path costs the host.
 
     PYTHONPATH=src python -m repro_torch.launch.xlstm_probe [--device cpu]
 
@@ -12,8 +12,10 @@ For weight seeds 0 and 1 it prefills 4 random 256-token prompts and takes
               chunkwise cell: no kernel anywhere
 Every evaluation decodes the first one's greedy tokens.  For each pair it
 prints one JSON line: the largest logit difference of every pass and the
-greedy tokens that differ.  On the card it also prints the launches and
-host time of one ``blocks._mlstm_normalizer`` call at the decode shape.
+greedy tokens that differ.  On the card it also prints the device
+launches and host time of one ``ops.mlstm`` call at the decode shape, as
+``blocks.mlstm_apply``'s kernel path makes it (C and the normalizer n
+updated in place by ``mlstm_scan``).
 
 chip_smoke.py bounds the kernel layer by layer; this script measures the
 free-running gaps it does not bound.
@@ -32,7 +34,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from ..configs import get_config
 from ..device import resolve
-from ..kernels import ref
+from ..kernels import ops, ref
 from ..models import blocks, init_model
 
 SEEDS = (0, 1)
@@ -84,31 +86,37 @@ def gaps(passes, a, b, vocab):
             "greedy_tokens": len(passes) * passes[0][a].shape[0]}
 
 
-def normalizer_cost(dev, cfg, batch, calls=50):
-    """Launches and host microseconds of one ``_mlstm_normalizer`` call at
-    the decode shape (one token), as each mLSTM layer makes per step."""
+def kernel_path_cost(dev, cfg, batch, calls=50):
+    """Device launches and host microseconds of one mLSTM decode call of
+    the kernel path (``ops.mlstm`` with C and n updated in place, one token),
+    as each mLSTM layer makes per step."""
     H = cfg.n_heads
     hd = int(cfg.mlstm_proj_factor * cfg.d_model) // H
     g = torch.Generator(device=dev).manual_seed(0)
-    k = torch.randn((batch, 1, H, hd), generator=g, device=dev)
+    q, k, v = torch.randn((3, batch, 1, H, hd), generator=g, device=dev)
     i, f = torch.rand((2, batch, 1, H), generator=g, device=dev)
-    n0 = torch.zeros((batch, H, hd), device=dev)
-    blocks._mlstm_normalizer(k, i, f, n0)
+    c = torch.zeros((batch, H, hd, hd), device=dev)
+    n = torch.zeros((batch, H, hd), device=dev)
+
+    def call():
+        ops.mlstm(q, k, v, i, f, c, n0=n, out=c, n_out=n)
+
+    call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        blocks._mlstm_normalizer(k, i, f, n0)
+        call()
         torch.cuda.synchronize()
     launches = sum(e.device_type == torch.autograd.DeviceType.CUDA
                    for e in prof.events())
     t0 = time.perf_counter()
     for _ in range(calls):
-        blocks._mlstm_normalizer(k, i, f, n0)
+        call()
     torch.cuda.synchronize()
     host_us = (time.perf_counter() - t0) / calls * 1e6
     n_mlstm = sum(kind == "mlstm" for kind in cfg.full_pattern)
-    return {"normalizer_launches_per_call": launches,
-            "normalizer_us_per_call": host_us, "mlstm_layers": n_mlstm,
-            "shape": f"k ({batch},1,{H},{hd})"}
+    return {"mlstm_decode_call_launches": launches,
+            "mlstm_decode_call_us": host_us, "mlstm_layers": n_mlstm,
+            "shape": f"q,k,v ({batch},1,{H},{hd})"}
 
 
 def probe(cfg, dev, seeds=SEEDS, batch=BATCH, prompt=PROMPT, steps=STEPS):
@@ -144,7 +152,7 @@ def main(argv=None):
         print(json.dumps({"device": torch.cuda.get_device_name(0)}))
     probe(cfg, dev)
     if dev.type == "cuda":
-        print(json.dumps(normalizer_cost(dev, cfg, BATCH)))
+        print(json.dumps(kernel_path_cost(dev, cfg, BATCH)))
 
 
 if __name__ == "__main__":

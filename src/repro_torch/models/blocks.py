@@ -280,7 +280,8 @@ def _mlstm_cell(q, k, v, i_gate, f_gate, c0, n0):
     log space so chunk ratios never overflow.  As in the JAX cell, a ragged
     tail is zero-padded, f included, so when S is above the chunk and not a
     multiple of it each padded row decays the returned state by 1e-8 (y is
-    unaffected; ROADMAP Queue 3).  The kernel pads with f = 1.
+    unaffected; ROADMAP Queue 3).  The kernel pads with f = 1, so
+    ``mlstm_apply`` applies that decay to the kernel's state itself.
     """
     B, S, H, hd = q.shape
     c_len = min(MLSTM_CHUNK, S)
@@ -319,21 +320,6 @@ def _mlstm_cell(q, k, v, i_gate, f_gate, c0, n0):
     return y, c_state, n_state
 
 
-def _mlstm_normalizer(k, i_gate, f_gate, n0):
-    """The normalizer state after the sequence, n ← n·exp(F_c) +
-    Σ_s exp(F_c − F_s)·i_s·k_s over chunks of ``MLSTM_CHUNK`` rows (the
-    last one short, not padded).  The kernel carries only C (as the TPU
-    kernel does), so the block computes n beside it here."""
-    n_state = n0
-    for c in range(0, k.shape[1], MLSTM_CHUNK):
-        sl = slice(c, c + MLSTM_CHUNK)
-        cum = torch.cumsum(torch.log(f_gate[:, sl] + 1e-8), dim=1)
-        rem = torch.exp(cum[:, -1:] - cum) * i_gate[:, sl]
-        n_state = n_state * torch.exp(cum[:, -1])[..., None] + \
-            torch.einsum("bshd,bsh->bhd", k[:, sl], rem)
-    return n_state
-
-
 def mlstm_apply(cfg: ModelConfig, p: Mapping[str, torch.Tensor], x,
                 ctx: Ctx):
     B, S, D = x.shape
@@ -358,18 +344,29 @@ def mlstm_apply(cfg: ModelConfig, p: Mapping[str, torch.Tensor], x,
     if ctx.plain:
         y, c_last, n_last = _mlstm_cell(q, k, v, i_gate, f_gate, c0, n0)
     else:
-        # The kernel writes C straight into the cache (each block reads its
-        # slab of c0 before it writes it, so c0 may be that same tensor).
-        y, c_last = ops.mlstm(q, k, v, i_gate, f_gate, c0,
-                              out=None if cache is None else cache["C"])
-        n_last = _mlstm_normalizer(k, i_gate, f_gate, n0)
+        # The kernel writes C and n straight into the cache (each block
+        # reads its slab of c0 and n0 before it writes it, so the inputs
+        # may be those same tensors).
+        y, c_last, n_last = ops.mlstm(
+            q, k, v, i_gate, f_gate, c0, n0=n0,
+            out=None if cache is None else cache["C"],
+            n_out=None if cache is None else cache["n"])
+        if S > MLSTM_CHUNK and S % MLSTM_CHUNK:
+            # The JAX cell pads the ragged tail with f = 0: each padded row
+            # decays C and n by log(1e-8), which the kernel (f = 1 padding,
+            # the identity) does not do.  Apply the same decay here.
+            pad = MLSTM_CHUNK - S % MLSTM_CHUNK
+            wipe = math.exp(pad * math.log(float(torch.tensor(1e-8))))
+            c_last.mul_(wipe)
+            n_last.mul_(wipe)
     y = y.reshape(B, S, di).to(x.dtype)
     y = rms_norm(y, p["out_norm"], cfg.norm_eps) * F.silu(z)
     out = dense(y, p["w_down"])
     if cache is not None and ctx.mode in ("decode", "prefill"):
         if c_last is not cache["C"]:
             cache["C"].copy_(c_last)
-        cache["n"].copy_(n_last)
+        if n_last is not cache["n"]:
+            cache["n"].copy_(n_last)
     return out, cache
 
 

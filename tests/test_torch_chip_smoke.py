@@ -60,14 +60,18 @@ def test_causal_bound_counts_visible_pairs():
 
 def test_mlstm_bound_counts_the_served_calls():
     """The serving shapes of xlstm-125m: the prefill is bound by the
-    recurrence's operations (2.4 GFLOP, 44 MB), a decode step by the bytes
-    of the state."""
+    recurrence's operations (2.4 GFLOP, 44 MB) at the 3xTF32 rate the
+    kernel computes at (495/3 TFLOP/s), a decode step by the bytes of the
+    state."""
     ms, by, nbytes, flops = chip_smoke.mlstm_bound(4, 256, 4, 384)
     # 4·hd² per token and head: the update k vᵀ and the product q·C.
     assert flops == 4 * 4 * 256 * 4 * 384 * 384 == 2_415_919_104
     assert nbytes == 4 * (4 * 4 * 256 * 4 * 384 + 2 * 4 * 256 * 4) \
         + 2 * 4 * 4 * 4 * 384 * 384
-    assert by == "operations" and ms == pytest.approx(flops / 67e12 * 1e3)
+    assert by == "operations"
+    assert ms == pytest.approx(flops / (495e12 / 3) * 1e3)
+    assert ms == pytest.approx(0.01464, abs=1e-5)
+    assert nbytes / 3.35e12 * 1e3 < ms           # the bytes fit under it
     # The chunkwise form's causal half (2·c(c+1)·hd + 4·c·hd² per chunk of
     # c = 128) is more work, so it would give a looser bound.
     chunkwise = 4 * 4 * 2 * (2 * 128 * 129 * 384 + 4 * 128 * 384 * 384)
@@ -79,15 +83,22 @@ def test_mlstm_bound_counts_the_served_calls():
 
 def test_mamba_bound_counts_the_served_calls():
     """Jamba's mixer as served, fp32: u, dt and y are 33.5 MB each at the
-    prefill shape, the state 2.1 MB read and 2.1 MB written; both calls
-    are bound by bytes."""
+    prefill shape, the state 2.1 MB read and 2.1 MB written.  The prefill
+    is bound by its 134 M exps on the special-function units (16 a clock
+    per SM), just above its bytes; a decode step by its bytes."""
     ms, by, nbytes, flops = chip_smoke.mamba_bound(4, 256, 8192, 16)
     assert nbytes == 4 * (3 * 4 * 256 * 8192 + 2 * 4 * 256 * 16) \
         + 4 * 8192 * 16 + 2 * 4 * 4 * 8192 * 16 == 105_512_960
     assert flops == 8 * 4 * 256 * 8192 * 16
-    assert by == "bytes" and ms == pytest.approx(nbytes / 3.35e12 * 1e3)
-    assert ms == pytest.approx(0.0315, abs=1e-4)
-    assert flops / 67e12 * 1e3 < ms              # the exps and flops fit
+    exps = 4 * 256 * 8192 * 16
+    assert by == "special-function"
+    assert ms == pytest.approx(exps / (132 * 16 * 1.98e9) * 1e3)
+    assert ms == pytest.approx(0.0321, abs=1e-4)
+    t_bytes = nbytes / 3.35e12 * 1e3
+    assert t_bytes == pytest.approx(0.0315, abs=1e-4) and t_bytes < ms
+    assert flops / 67e12 * 1e3 < ms              # the fp32 flops fit
+    ms, by, _, _ = chip_smoke.mamba_bound(4, 256, 8192, 16, "bfloat16")
+    assert by == "special-function"              # twice the byte bound
     ms, by, nbytes, _ = chip_smoke.mamba_bound(4, 1, 8192, 16)
     assert nbytes == 4 * (3 * 4 * 8192 + 2 * 4 * 16) + 4 * 8192 * 16 \
         + 2 * 4 * 4 * 8192 * 16 == 5_112_320

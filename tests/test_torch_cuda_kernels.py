@@ -259,3 +259,147 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="state size"):
         ops.selective_scan(u, u, torch.zeros((32, 12), device=cuda), bc, bc,
                            torch.zeros((1, 32, 12), device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# The scans as redesigned for Hopper: the mLSTM normalizer, the serving
+# shapes in both dtypes, carried and in-place states, repeats, refusals
+# ---------------------------------------------------------------------------
+def mlstm_inputs(seed, B, S, H, hd, dtype, device, k_scale=1.0):
+    """q, k, v, i, f as the model makes them (k scaled by 1/sqrt(hd) at the
+    serving width, the forget gate biased toward remembering)."""
+    q = randn(seed, (B, S, H, hd), dtype, device)
+    k = (randn(seed + 1, (B, S, H, hd), "float32", device) * k_scale).to(
+        DT[dtype])
+    v = randn(seed + 2, (B, S, H, hd), dtype, device)
+    i = torch.sigmoid(randn(seed + 3, (B, S, H), "float32", device))
+    f = torch.sigmoid(randn(seed + 4, (B, S, H), "float32", device) + 2.0)
+    return q, k, v, i.to(DT[dtype]), f.to(DT[dtype])
+
+
+def hold_mlstm(inp, c0, n0, dtype, chunk=128, in_place=False):
+    """One ops.mlstm call with n0 against ref.mlstm_ref: y at TOL, C and n
+    at MLSTM_C_TOL."""
+    want_y, want_c, want_n = ref.mlstm_ref(*inp, c0, n0)
+    c_in, n_in = (c0.clone(), n0.clone()) if in_place else (c0, n0)
+    ops.reset_launch_counts()
+    y, c, n = ops.mlstm(*inp, c_in, n0=n_in, chunk=chunk,
+                        out=c_in if in_place else None,
+                        n_out=n_in if in_place else None)
+    assert ops.launch_counts()["mlstm_scan"] == 1
+    if in_place:
+        assert c is c_in and n is n_in
+    assert y.dtype == inp[0].dtype and n.dtype == torch.float32
+    torch.testing.assert_close(y.float(), want_y, rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    torch.testing.assert_close(c, want_c, rtol=MLSTM_C_TOL[dtype],
+                               atol=MLSTM_C_TOL[dtype])
+    torch.testing.assert_close(n, want_n, rtol=MLSTM_C_TOL[dtype],
+                               atol=MLSTM_C_TOL[dtype])
+    return y, c, n
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", MLSTM_SWEEP)
+def test_mlstm_normalizer_matches_ref(case, dtype, cuda):
+    B, S, H, hd, chunk = case
+    inp = mlstm_inputs(36, B, S, H, hd, dtype, cuda)
+    c0 = randn(37, (B, H, hd, hd), "float32", cuda) * 0.3
+    n0 = randn(38, (B, H, hd), "float32", cuda) * 0.3
+    hold_mlstm(inp, c0, n0, dtype, chunk=chunk)
+    hold_mlstm(inp, c0, n0, dtype, chunk=1)          # the step kernel
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [256, 1], ids=["prefill", "decode"])
+def test_mlstm_scan_serving_shapes(S, dtype, cuda):
+    """xlstm-125m's mLSTM as served: (4, S, 4, 384), the prefill from a
+    zero state, a decode step updating nonzero C and n in place."""
+    B, H, hd = 4, 4, 384
+    inp = mlstm_inputs(140, B, S, H, hd, dtype, cuda, k_scale=hd ** -0.5)
+    scale = 0.0 if S > 1 else 0.1
+    c0 = randn(141, (B, H, hd, hd), "float32", cuda) * scale
+    n0 = randn(142, (B, H, hd), "float32", cuda) * scale
+    hold_mlstm(inp, c0, n0, dtype, in_place=S == 1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mlstm_scan_widest_head(dtype, cuda):
+    """hd 448, the widest the wrapper takes: the 48-column slab no longer
+    fits shared memory, so the scan kernel takes 32 columns; a ragged
+    second chunk, then one decode step from the carried state."""
+    B, S, H, hd = 1, 150, 2, 448
+    inp = mlstm_inputs(155, B, S, H, hd, dtype, cuda, k_scale=hd ** -0.5)
+    c0 = randn(156, (B, H, hd, hd), "float32", cuda) * 0.1
+    n0 = randn(157, (B, H, hd), "float32", cuda) * 0.1
+    _, c, n = hold_mlstm(inp, c0, n0, dtype)
+    step = mlstm_inputs(158, B, 1, H, hd, dtype, cuda, k_scale=hd ** -0.5)
+    hold_mlstm(step, c, n, dtype, in_place=True)
+
+
+def test_mlstm_scan_carries_c_and_n_across_calls(cuda):
+    inp = mlstm_inputs(150, 2, 300, 2, 64, "float32", cuda)
+    c0 = randn(151, (2, 2, 64, 64), "float32", cuda) * 0.3
+    n0 = randn(152, (2, 2, 64), "float32", cuda) * 0.3
+    y, c, n = ops.mlstm(*inp, c0, n0=n0)
+    y1, c1, n1 = ops.mlstm(*(t[:, :131] for t in inp), c0, n0=n0)
+    y2, c2, n2 = ops.mlstm(*(t[:, 131:] for t in inp), c1, n0=n1)
+    torch.testing.assert_close(torch.cat([y1, y2], dim=1), y, rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(c2, c, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(n2, n, rtol=1e-5, atol=1e-5)
+
+
+def test_scan_decode_steps_repeat_bitwise(cuda):
+    """The same decode step twice gives bitwise-equal outputs and states
+    (no atomics, no order that changes from run to run)."""
+    inp = mlstm_inputs(160, 4, 1, 4, 384, "float32", cuda, 384 ** -0.5)
+    c0 = randn(161, (4, 4, 384, 384), "float32", cuda) * 0.1
+    n0 = randn(162, (4, 4, 384), "float32", cuda) * 0.1
+    first = ops.mlstm(*inp, c0, n0=n0)
+    for _ in range(2):
+        for got, want in zip(ops.mlstm(*inp, c0, n0=n0), first):
+            assert torch.equal(got, want)
+    m = mamba_inputs(163, 4, 1, 8192, 16, "float32", cuda, 0.5)
+    first = ops.selective_scan(*m)
+    for _ in range(2):
+        for got, want in zip(ops.selective_scan(*m), first):
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("S", [256, 1], ids=["prefill", "decode"])
+def test_mamba_scan_serving_shapes_bf16(S, cuda):
+    """Jamba's mixer at the serving shapes with bf16 u, dt, b, c: y at the
+    bf16 tolerance, the fp32 state at MAMBA_H_TOL, updated in place."""
+    u, dt, a, b, c, h0 = mamba_inputs(170, 4, S, 8192, 16, "bfloat16", cuda,
+                                      0.0 if S > 1 else 0.5)
+    want_y, want_h = ref.mamba_scan_ref(u, dt, a, b, c, h0)
+    y, h = ops.selective_scan(u, dt, a, b, c, h0, out=h0)
+    assert h is h0 and y.dtype == torch.bfloat16
+    torch.testing.assert_close(y.float(), want_y, rtol=TOL["bfloat16"],
+                               atol=TOL["bfloat16"])
+    torch.testing.assert_close(h, want_h, rtol=MAMBA_H_TOL, atol=MAMBA_H_TOL)
+
+
+def test_scan_wrappers_refuse_what_the_redesigned_kernels_do_not_take(cuda):
+    x = torch.zeros((1, 8, 2, 32), device=cuda)
+    g = torch.zeros((1, 8, 2), device=cuda)
+    c0 = torch.zeros((1, 2, 32, 32), device=cuda)
+    n0 = torch.zeros((1, 2, 32), device=cuda)
+    with pytest.raises(ValueError, match="n_out needs n0"):
+        ops.mlstm(x, x, x, g, g, c0, n_out=n0)
+    with pytest.raises(ValueError, match="n0 and n_out must be"):
+        ops.mlstm(x, x, x, g, g, c0, n0=n0[..., :16])
+    odd = torch.zeros(1 + x.numel(), device=cuda)[1:].view(x.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.mlstm(odd, x, x, g, g, c0)
+    u = torch.zeros((1, 8, 96), device=cuda)                 # di = 96
+    bc = torch.zeros((1, 8, 16), device=cuda)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        ops.selective_scan(u, u, torch.zeros((96, 16), device=cuda), bc, bc,
+                           torch.zeros((1, 96, 16), device=cuda))
+    u = torch.zeros((1, 8, 64), device=cuda)
+    odd = torch.zeros(1 + u.numel(), device=cuda)[1:].view(u.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        ops.selective_scan(odd, u, torch.zeros((64, 16), device=cuda), bc,
+                           bc, torch.zeros((1, 64, 16), device=cuda))

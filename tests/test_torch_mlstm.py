@@ -4,7 +4,8 @@ The port's plain ``ref.mlstm_ref`` against ``repro.kernels.ref.mlstm_ref``,
 and ``ops.mlstm`` (which takes the plain version for CPU tensors) against the
 Pallas ``mlstm_scan`` run in interpret mode, over the sweep of
 tests/test_kernels.py, one full-width head (hd 384) and a state carried over
-two calls.  The CUDA kernel itself is held against the plain version on the
+two calls, and the normalizer ``n`` that ``ops.mlstm`` returns with ``n0``.
+The CUDA kernel itself is held against the plain version on the
 card by tests/test_torch_cuda_kernels.py and chip_smoke.py.
 """
 import math
@@ -138,6 +139,58 @@ def test_state_carries_across_two_calls(in_place):
     close(c2, jc, **TOL["float32"])
 
 
+# ---------------------------------------------------------------------------
+# The normalizer: ops.mlstm(..., n0=...) against the JAX oracle's n
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", MLSTM_SWEEP)
+def test_ops_mlstm_normalizer_matches_jax(case, dtype):
+    """With ``n0``, ``ops.mlstm`` also returns n_last (C's update with
+    v = 1), as ``repro.kernels.ref.mlstm_ref`` carries it; y and C are
+    those of the call without ``n0``."""
+    B, S, H, hd, chunk = case
+    pairs, (jc0, c0), _ = inputs(B, S, H, hd, dtype, c0_scale=0.3)
+    n0_np = np.random.RandomState(9).randn(B, H, hd) * 0.3
+    jn0, n0 = pair(n0_np, "float32")
+    (jq, q), (jk, k), (jv, v), (ji, i), (jf, f) = pairs
+    y, c_last, n_last = ops.mlstm(q, k, v, i, f, c0, n0=n0, chunk=chunk)
+    _, _, jn = jref.mlstm_ref(jq, jk, jv, ji, jf, jc0, jn0)
+    assert n_last.dtype == torch.float32 and n_last.shape == (B, H, hd)
+    close(n_last, jn, **TOL["float32"])
+    y2, c2 = ops.mlstm(q, k, v, i, f, c0, chunk=chunk)
+    torch.testing.assert_close(y, y2, rtol=0, atol=0)
+    torch.testing.assert_close(c_last, c2, rtol=0, atol=0)
+
+
+def test_ops_mlstm_updates_the_normalizer_in_place():
+    """``n_out=n0`` (and ``out=c0``) write the states into the inputs, as
+    the model's decode step does, over two calls that carry them."""
+    B, S, H, hd, chunk = 2, 40, 2, 32, 16
+    pairs, (jc0, c0), _ = inputs(B, S, H, hd, "float32", seed=7,
+                                 c0_scale=0.2)
+    jn0, n0 = pair(np.random.RandomState(8).randn(B, H, hd) * 0.2,
+                   "float32")
+    (jq, q), (jk, k), (jv, v), (ji, i), (jf, f) = pairs
+    c_state, n_state = c0.clone(), n0.clone()
+    for sl in (slice(0, 23), slice(23, S)):
+        _, c_ret, n_ret = ops.mlstm(q[:, sl], k[:, sl], v[:, sl], i[:, sl],
+                                    f[:, sl], c_state, n0=n_state,
+                                    chunk=chunk, out=c_state, n_out=n_state)
+        assert c_ret is c_state and n_ret is n_state
+    _, jc, jn = jref.mlstm_ref(jq, jk, jv, ji, jf, jc0, jn0)
+    close(c_state, jc, **TOL["float32"])
+    close(n_state, jn, **TOL["float32"])
+
+
+def test_ops_mlstm_without_n0_returns_two_values():
+    pairs, (_, c0), (_, n0) = inputs(1, 8, 1, 16, "float32")
+    ts = [t for _, t in pairs]
+    assert len(ops.mlstm(*ts, c0, chunk=4)) == 2
+    assert len(ops.mlstm(*ts, c0, n0=n0, chunk=4)) == 3
+    with pytest.raises(ValueError, match="n_out needs n0"):
+        ops.mlstm(*ts, c0, chunk=4, n_out=n0)
+
+
 def test_launch_counters_stay_zero_on_cpu():
     ops.reset_launch_counts()
     pairs, (_, c0), _ = inputs(1, 8, 1, 16, "float32")
@@ -147,6 +200,8 @@ def test_launch_counters_stay_zero_on_cpu():
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
-    pairs, (_, c0), _ = inputs(1, 8, 1, 16, "float32")
+    pairs, (_, c0), (_, n0) = inputs(1, 8, 1, 16, "float32")
     with pytest.raises(ValueError, match="CUDA"):
         mlstm_scan.mlstm_scan(*(t for _, t in pairs), c0)
+    with pytest.raises(ValueError, match="CUDA"):
+        mlstm_scan.mlstm_scan(*(t for _, t in pairs), c0, n0=n0)

@@ -25,6 +25,7 @@ from repro.models import config as jmc  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import (blocks, init_cache, layer_cache, lm,  # noqa: E402
                                 smoke)
@@ -168,8 +169,8 @@ def test_full_width_parameter_count():
 def test_mlstm_cell_matches_jax(S, chunk, monkeypatch):
     """The plain chunkwise cell, its ragged tail padded as the JAX cell pads
     it (f included, which wipes the state: ROADMAP Queue 3).  The
-    normalizer the kernel path computes beside the kernel is the exact
-    recurrence's, as ``ref.mlstm_ref`` carries it."""
+    normalizer that ``ops.mlstm`` returns with ``n0`` (the kernel's
+    contract) is the exact recurrence's, as ``ref.mlstm_ref`` carries it."""
     monkeypatch.setattr(blocks, "MLSTM_CHUNK", chunk)
     monkeypatch.setattr(jblocks, "MLSTM_CHUNK", chunk)
     B, H, hd = 2, 2, 16
@@ -188,19 +189,20 @@ def test_mlstm_cell_matches_jax(S, chunk, monkeypatch):
     close(c_last, jc, rtol=1e-5, atol=1e-5)
     close(n_last, jn, rtol=1e-5, atol=1e-5)
     _, jc_seq, jn_seq = jref.mlstm_ref(jq, jk, jv, ji, jf, jc0, jn0)
-    close(blocks._mlstm_normalizer(k, i, f, n0), jn_seq, rtol=1e-5,
-          atol=1e-5)
+    _, _, n_ops = ops.mlstm(q, k, v, i, f, c0, n0=n0)
+    close(n_ops, jn_seq, rtol=1e-5, atol=1e-5)
     if S % chunk and S > chunk:
         assert float(jnp.abs(jc).max()) < 1e-20 < float(jnp.abs(jc_seq).max())
 
 
-def test_ragged_prompt_above_the_chunk_parts_the_paths(xlstm):
+def test_ragged_prompt_above_the_chunk_wipes_the_state_on_both_paths(xlstm):
     """A 300-token prefill (above the 256-row chunk, not a multiple of it)
-    through ``mlstm_apply``: the plain path pads the tail with f = 0 as the
-    JAX cell does, which wipes C and n; the kernel path (here the
-    sequential recurrence behind ``ops.mlstm``, and ``_mlstm_normalizer``)
-    keeps the exact state.  The outputs agree; the states differ, and each
-    path pins its own behaviour (ROADMAP Queue 3)."""
+    through ``mlstm_apply``: the JAX cell pads the tail with f = 0, which
+    wipes C and n.  The plain path pads the same way; the kernel path (here
+    the sequential recurrence behind ``ops.mlstm``) pads with f = 1 and
+    then applies the padded rows' decay itself, so both paths give the JAX
+    model's wiped state.  The outputs agree with the JAX model's and with
+    one unpadded chunk's (ROADMAP Queue 3)."""
     jcfg, jparams, cfg, model = xlstm
     B, S = 1, 300
     jx, x = randn(20, (B, S, cfg.d_model))
@@ -228,10 +230,12 @@ def test_ragged_prompt_above_the_chunk_parts_the_paths(xlstm):
     torch.testing.assert_close(kernel_out, exact_out, **TOL)
     for name in ("C", "n"):
         close(plain_cache[name], jcache[name])
-        assert float(plain_cache[name].abs().max()) < 1e-20
-        assert float(kernel_cache[name].abs().max()) > 1e-3
-        torch.testing.assert_close(kernel_cache[name], exact_cache[name],
+        close(kernel_cache[name], jcache[name])
+        torch.testing.assert_close(kernel_cache[name], plain_cache[name],
                                    **TOL)
+        assert float(plain_cache[name].abs().max()) < 1e-20
+        assert float(kernel_cache[name].abs().max()) < 1e-20
+        assert float(exact_cache[name].abs().max()) > 1e-3
 
 
 @pytest.mark.parametrize("mode", ["train", "prefill", "decode"])
