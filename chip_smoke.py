@@ -34,7 +34,19 @@ Phases, each of which must pass (any failure exits non-zero):
      weights; all 32 layers would be 103 GB) in bf16 as in phase 5: every
      mamba layer went through ``mamba_scan``, both attention layers
      through the attention kernels; then its layers as in phase 9;
- 11. one ``flash_attention`` and one ``flash_decode`` call under
+ 11. train llama3.2-1b at full width (16 layers, fp32 parameters and
+     moments, batch 1 x 4,096 tokens of the synthetic zipf stream,
+     remat "full") through ``repro_torch.launch.train.train``, with
+     deterministic algorithms on: the training forward (plain path, with
+     grad) against the served forward through the kernels; the gradient
+     against a central difference along a random unit direction; a
+     6-step golden run whose loss falls; then a run with Cornus
+     checkpoints over 4 hosts every 3 steps that crashes after host 0's
+     vote in epoch 6, and its resume from epoch 3, whose losses must
+     equal the golden run's.  The training path launches none of the
+     four kernels: it differentiates the plain path, as the JAX package
+     does;
+ 12. one ``flash_attention`` and one ``flash_decode`` call under
      torch.profiler, each exactly one device kernel, and each scan call
      (one kernel; two for the ``mlstm_scan`` prefill: scores, then the
      scan); then one ``{"kernels": [...]}`` line with each kernel's time
@@ -46,7 +58,10 @@ outside a checkout, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
+import math
+import os
 import re
 import shutil
 import subprocess
@@ -127,6 +142,16 @@ TF32X3_FLOPS = 495e12 / 3
 # The special-function units: 16 MUFU.EX2 per SM a clock, 132 SMs, at the
 # 1.98 GHz behind the 67 TFLOP/s fp32 figure (128 lanes x 2 x 132 SMs).
 SFU_EXPS_PER_S = 132 * 16 * 1.98e9
+
+# The training path: llama3.2-1b at full width, fp32 parameters and AdamW
+# moments, batch 1 of TRAIN_4K's 4,096-token sequence (its global batch of
+# 256 cut to what one card holds), remat "full", WSD warm-up of 2 steps.
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4096, 1, 6
+TRAIN_CKPT_EVERY, TRAIN_HOSTS, TRAIN_CRASH_AT = 3, 4, 6
+TRAIN_FWD_TOL = 1e-3     # training forward vs served forward (the fp32
+                         # logits' tolerance, MODEL_TOL), relative
+TRAIN_FD_TOL = 1e-2      # directional derivative vs central difference
+TRAIN_RESUME_RTOL = 1e-5  # tests/test_train_loop.py:44-60
 
 
 def check(cond: bool, msg: str) -> None:
@@ -244,7 +269,108 @@ def sass_forms(lib: Path, opcode: str) -> Dict[str, int]:
     return forms
 
 
+# ---------------------------------------------------------------------------
+# Training: the FLOP count, the memory reckoning, the gradient check
+# ---------------------------------------------------------------------------
+def spec_elements(cfg, layers_only=False) -> int:
+    """Parameter elements in the model's spec leaves (``model_specs``),
+    without allocating; only the layers' with ``layers_only``."""
+    from repro_torch.models.layers import PSpec
+    from repro_torch.models.lm import model_specs
+
+    def count(tree):
+        if isinstance(tree, PSpec):
+            return math.prod(tree.shape)
+        items = tree.values() if isinstance(tree, dict) else tree
+        return sum(count(t) for t in items)
+
+    specs = model_specs(cfg)
+    return count(specs["layers"] if layers_only else specs)
+
+
+def train_flops(cfg, batch, seq, remat="full"):
+    """Model FLOPs of one training step, by term: 6·N·T for the
+    parameters' products (2 forward, 4 backward per parameter and token; N
+    counts every leaf, the tied embedding once, as the head's product);
+    the attention's score and value products, 4·hd per (query, key) pair
+    over the full S x S that the plain attention computes, times 3 for the
+    forward and backward; and with remat "full" the layers' forward again
+    (their parameters' 2·N_layers·T and the attention's forward)."""
+    tokens = batch * seq
+    n_attn = sum(k in ("attn", "attn_local") for k in cfg.full_pattern)
+    attn_fwd = 4.0 * batch * cfg.n_heads * cfg.hd * seq * seq * n_attn
+    out = {"params": 6.0 * spec_elements(cfg) * tokens,
+           "attention": 3 * attn_fwd,
+           "recompute": (2.0 * spec_elements(cfg, layers_only=True) * tokens
+                         + attn_fwd) if remat == "full" else 0.0}
+    out["total"] = sum(out.values())
+    return out
+
+
+def train_memory_gb(cfg, batch, seq):
+    """Device memory of one fp32 training step, reckoned from the shapes:
+    parameters, gradients, m and v (4 bytes each per element); one
+    layer's fp32 attention scores, of which the recomputed layer's
+    backward holds about three; the fp32 logits and their gradient."""
+    state = 4 * 4 * spec_elements(cfg)
+    scores = 4 * batch * cfg.n_heads * seq * seq
+    logits = 4 * batch * seq * cfg.padded_vocab
+    return {"state_gb": state / 1e9, "scores_gb": scores / 1e9,
+            "logits_gb": logits / 1e9,
+            "estimate_gb": (state + 3 * scores + 2 * logits) / 1e9}
+
+
+def directional_check(loss_at, params, grads, seed=0, eps_rel=3e-3):
+    """The gradient along a random unit direction d over all parameters,
+    ⟨∇L, d⟩, against central differences D(h) = (L(p+hd) − L(p−hd)) / 2h.
+    ``loss_at()`` evaluates the loss at the parameters' current values.
+    The step ε is ``eps_rel`` times the parameters' global norm, and the
+    slope compared is the Richardson extrapolation (4·D(ε/2) − D(ε)) / 3,
+    which cancels D's ε² term: at this ε that term, not the fp32 loss's
+    rounding, is what parts D from the slope (on the smoke llama D is off
+    by 4e-4 to 1e-2 over a tenfold range of ε, the extrapolation by 2e-4 to
+    7e-4).  The parameters are put back as they were.  Returns ε, the
+    slopes and the extrapolation's relative difference from ⟨∇L, d⟩."""
+    import torch
+    dirs = []
+    for i, p in enumerate(params):
+        g = torch.Generator(device=p.device)
+        g.manual_seed(seed * 1_000_003 + i)
+        dirs.append(torch.randn(p.shape, generator=g, device=p.device))
+    norm = sum(float(d.double().square().sum()) for d in dirs) ** 0.5
+    dirs = [d / norm for d in dirs]
+    dot = sum(float((g.float() * d).sum(dtype=torch.float64))
+              for g, d in zip(grads, dirs))
+    p_norm = sum(float(p.detach().double().square().sum())
+                 for p in params) ** 0.5
+    eps = eps_rel * p_norm
+    losses = {}
+    with torch.no_grad():
+        saved = [p.detach().clone() for p in params]
+        for h in (eps, -eps, eps / 2, -eps / 2):
+            for p, s, d in zip(params, saved, dirs):
+                p.copy_(s + h * d)
+            losses[h] = float(loss_at())
+        for p, s in zip(params, saved):
+            p.copy_(s)
+    d_eps = (losses[eps] - losses[-eps]) / (2 * eps)
+    d_half = (losses[eps / 2] - losses[-eps / 2]) / eps
+    fd = (4 * d_half - d_eps) / 3
+    return {"eps": eps, "param_norm": p_norm, "dot": dot, "fd": fd,
+            "central_eps": d_eps, "central_half_eps": d_half,
+            "rel": abs(fd - dot) / max(abs(dot), 1e-30),
+            "losses": [losses[h] for h in (eps, -eps, eps / 2, -eps / 2)]}
+
+
 def layer_parity(name, model, prompts, tol=MODEL_TOL):
+    """``_layer_parity`` under ``torch.inference_mode()``: the parameters
+    require grad, and the kernels refuse to record a graph."""
+    import torch
+    with torch.inference_mode():
+        return _layer_parity(name, model, prompts, tol)
+
+
+def _layer_parity(name, model, prompts, tol=MODEL_TOL):
     """The kernel path against the plain path layer by layer: every
     layer's mixer on both paths is fed the plain path's input (and each
     path keeps its own cache), and the layer's FFN or MoE, which has no
@@ -358,12 +484,190 @@ class recorded_routes:
         return n, total
 
 
+def train_phase(torch, dev):
+    """Phase 11: llama3.2-1b trained at full width through
+    ``launch.train.train`` (see the module docstring).  Returns the
+    numbers it prints and the kernel launches of the training runs."""
+    from repro_torch.ckpt import latest_committed
+    from repro_torch.ckpt.commit import CornusCheckpointer
+    from repro_torch.configs import get_config
+    from repro_torch.core.state import Decision
+    from repro_torch.core.storage import FileStore
+    from repro_torch.data import DataConfig, make_pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import (MidCheckpointCrash, RunConfig,
+                                          _hosts, train)
+    from repro_torch.models import init_model
+
+    t_phase = time.perf_counter()
+    cfg = get_config(ARCH)
+    store_dir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(store_dir, ignore_errors=True)
+    store_dir.mkdir(parents=True)
+    free_gb = shutil.disk_usage(store_dir).free / 1e9
+    flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    mem = train_memory_gb(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    log(f"[train] {cfg.name} at full width: {cfg.n_layers} layers, "
+        f"{spec_elements(cfg)} parameter elements, batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens, fp32, remat full; model FLOPs a step "
+        f"{json.dumps(flops)}; memory reckoned {json.dumps(mem)}; disk free "
+        f"under build/ {free_gb:.1f} GB")
+    run = RunConfig(arch=ARCH, use_smoke=False, steps=TRAIN_STEPS,
+                    batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                    ckpt_every=TRAIN_STEPS + 1, ckpt_dir=str(store_dir),
+                    n_hosts=TRAIN_HOSTS, warmup=2, remat="full", log_every=0,
+                    device=str(dev))
+    torch.use_deterministic_algorithms(True)
+    try:
+        # -- checks 1 and 2 on the model at step 0 -----------------------
+        torch.cuda.reset_peak_memory_stats()
+        model = init_model(cfg, run.seed, device=dev)
+        nb = make_pipeline(DataConfig(
+            batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, vocab_size=cfg.vocab_size,
+            seed=run.seed)).batch_at(0)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in nb.items()}
+        ops.reset_launch_counts()
+        with torch.inference_mode():
+            served, _ = model.forward(batch)
+        served = float(served)
+        served_launches = ops.launch_counts()
+        check(served_launches["flash_attention"] == cfg.n_layers,
+              f"served forward launches {served_launches}")
+        loss0, grads = steps.loss_and_grads(model, batch, remat="full")
+        loss0 = float(loss0)
+        step0_peak = torch.cuda.max_memory_allocated() / 1e9
+        e = abs(loss0 - served) / abs(served)
+        log(f"[train] check 1: training forward (plain, with grad) loss "
+            f"{loss0!r} vs served forward (kernels, inference_mode) "
+            f"{served!r}: relative {e:g} (tol {TRAIN_FWD_TOL})")
+        check(e <= TRAIN_FWD_TOL, f"training vs served forward {e:g}")
+
+        params = list(model.parameters())
+        gl = [grads[n] for n, _ in model.named_parameters()]
+
+        def loss_at():
+            with torch.no_grad():
+                return model.forward(batch, plain=True)[0]
+
+        fd = directional_check(loss_at, params, gl, seed=1)
+        log(f"[train] check 2: along a random unit direction, eps "
+            f"{fd['eps']!r} (3e-3 of the parameters' norm "
+            f"{fd['param_norm']:.2f}): <grad, d> {fd['dot']!r}, central "
+            f"differences {fd['central_eps']!r} (eps) and "
+            f"{fd['central_half_eps']!r} (eps/2), extrapolated {fd['fd']!r}: "
+            f"relative {fd['rel']:g} (tol {TRAIN_FD_TOL}); L at +eps, -eps, "
+            f"+eps/2, -eps/2: {fd['losses']}")
+        check(fd["rel"] <= TRAIN_FD_TOL,
+              f"directional derivative off by {fd['rel']:g}")
+        del model, grads, gl, params, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- check 3: the golden run ---------------------------------------
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        golden = train(run)
+        train_launches = ops.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        gc.collect()
+        torch.cuda.empty_cache()
+        check(not any(train_launches.values()),
+              f"the training path launched kernels: {train_launches}")
+        L = golden.losses
+        log(f"[train] check 3: golden run losses {L}")
+        check(len(L) == TRAIN_STEPS and all(map(math.isfinite, L)),
+              "golden losses finite")
+        check(golden.losses[0] == loss0,
+              f"golden step-0 loss {L[0]!r} != the model's {loss0!r}")
+        check(L[5] < L[1], f"step-5 loss {L[5]} not below step-1 {L[1]}")
+
+        # -- check 4: crash mid-checkpoint, then resume through Cornus -----
+        crash_run = dataclasses.replace(run, ckpt_every=TRAIN_CKPT_EVERY,
+                                        die_mid_checkpoint_at=TRAIN_CRASH_AT)
+        crashed = None
+        try:
+            train(crash_run)
+        except MidCheckpointCrash as exc:
+            crashed = exc.result
+        gc.collect()
+        torch.cuda.empty_cache()
+        check(crashed is not None, "the crash run did not crash")
+        check([o.epoch for o in crashed.ckpt_outcomes] == [TRAIN_CKPT_EVERY]
+              and crashed.ckpt_outcomes[0].decision == Decision.COMMIT,
+              f"epoch {TRAIN_CKPT_EVERY} did not commit")
+        hosts = _hosts(TRAIN_HOSTS)
+        store = FileStore(str(store_dir))
+        resolver = CornusCheckpointer(store, "restore", hosts)
+        states = resolver.read_states(TRAIN_CRASH_AT)
+        log(f"[train] after the crash, epoch {TRAIN_CRASH_AT}'s votes "
+            f"{ {h: v and v.value for h, v in states.items()} }")
+        check(resolver.global_decision(TRAIN_CRASH_AT)
+              == Decision.UNDETERMINED, "epoch 6 is not left in flight")
+        payload_gb = {h: os.path.getsize(store.data_path(
+            h, f"e{TRAIN_CKPT_EVERY:012d}")) / 1e9 for h in hosts}
+        t0 = time.perf_counter()
+        resumed = train(dataclasses.replace(crash_run, resume=True,
+                                            die_mid_checkpoint_at=None))
+        resume_s = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        check(resumed.restored_from == TRAIN_CKPT_EVERY,
+              f"resumed from {resumed.restored_from}")
+        check(resolver.global_decision(TRAIN_CRASH_AT) == Decision.ABORT,
+              "the resume did not force-abort epoch 6")
+        check(latest_committed(store, hosts) == TRAIN_CKPT_EVERY,
+              "latest committed epoch is not 3")
+        want = golden.losses[TRAIN_CKPT_EVERY:]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(resumed.losses, want))
+        log(f"[train] check 4: resumed losses {resumed.losses} vs golden "
+            f"{want}: max relative {rel:g} (rtol {TRAIN_RESUME_RTOL})")
+        check(len(resumed.losses) == len(want) and rel <= TRAIN_RESUME_RTOL,
+              "the resumed run does not reproduce the golden curve")
+        check([(o.epoch, o.decision) for o in resumed.ckpt_outcomes]
+              == [(TRAIN_CRASH_AT, Decision.ABORT)],
+              f"resumed outcomes {resumed.ckpt_outcomes}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(store_dir, ignore_errors=True)
+
+    step_s = sorted(golden.step_s[1:])[len(golden.step_s[1:]) // 2]
+    epochs = crashed.ckpt_outcomes + resumed.ckpt_outcomes
+    out = {
+        "arch": cfg.name, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "dtype": "float32", "remat": "full", "steps": TRAIN_STEPS,
+        "step_ms": step_s * 1e3,
+        "step_ms_all": [t * 1e3 for t in golden.step_s],
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+        "model_tflop_per_step": flops["total"] / 1e12,
+        "mfu_fp32_67tflops": flops["total"] / step_s / PEAK_FLOPS["float32"],
+        "bound_ms": flops["total"] / PEAK_FLOPS["float32"] * 1e3,
+        "peak_gb": peak_gb, "step0_checks_peak_gb": step0_peak,
+        "reckoned_gb": mem["estimate_gb"],
+        "payload_gb_per_host": payload_gb,
+        "epochs": [{"epoch": o.epoch, "decision": o.decision.value,
+                    "vote_ms": o.vote_ms, "resolve_ms": o.resolve_ms,
+                    "forced_aborts": o.forced_aborts} for o in epochs],
+        "golden_wall_s": golden.wall_s, "crash_run_steps": len(
+            crashed.losses), "resume_wall_s": resume_s,
+        "check1_rel": e, "check2": fd, "check4_max_rel": rel,
+        "served_forward_launches": served_launches,
+        "train_launches": train_launches,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    log(f"[train] {json.dumps(out)}")
+    return out, train_launches
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print(f"chip_smoke: {ROOT} is not a checkout of the repository "
               f"(src/repro_torch is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    # cuBLAS is deterministic only with a fixed workspace, which must be set
+    # before its first call; the training phase needs it (phase 11).
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -907,7 +1211,10 @@ def run(torch) -> int:
     del model
     torch.cuda.empty_cache()
 
-    # -- 11. kernel times at the serving shapes -------------------------------
+    # -- 11. train llama3.2-1b at full width ----------------------------------
+    _, train_launches = train_phase(torch, dev)
+
+    # -- 12. kernel times at the serving shapes -------------------------------
     # Before each timed call the card spins for about 1 ms (so the host has
     # queued the call before the card reaches it, and the events bracket
     # device time, not the wrapper's Python) and zeroes 64 MB (evicting the
@@ -975,8 +1282,10 @@ def run(torch) -> int:
         }
         return {"flash_attention": fa, "flash_decode": fd}
 
-    # Each served path's counted wave (counters set to 0 just before it).
-    by_path = {ARCH: serve_launches, XLSTM: xlstm_launches,
+    # Each path's counted run (counters set to 0 just before it): the
+    # served waves, and the training runs, which launch none.
+    by_path = {ARCH: serve_launches, f"{ARCH} train": train_launches,
+               XLSTM: xlstm_launches,
                jcfg2.name: jamba_launches}
 
     def launches_of(name):

@@ -19,7 +19,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from . import _build
+from . import _build, refuse_grad
 
 NAME = "flash_decode"
 BLOCK_KV = 32           # keys per tile in the kernel
@@ -81,6 +81,7 @@ def _tickets_for(device: torch.device, stream: int, n: int) -> torch.Tensor:
 
 
 def _check(q, k, v, kv_len):
+    refuse_grad(NAME, q, k, v)
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"dtypes must match and be fp32 or bf16: "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")

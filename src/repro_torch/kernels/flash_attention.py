@@ -18,7 +18,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, refuse_grad
 
 NAME = "flash_attention"
 HEAD_DIMS = (16, 32, 64, 128)   # instantiated in the CUDA source
@@ -53,6 +53,7 @@ def _launcher():
 
 
 def _check(q, k, v):
+    refuse_grad(NAME, q, k, v)
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"dtypes must match and be fp32 or bf16: "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")

@@ -18,7 +18,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, refuse_grad
 
 NAME = "mamba_scan"
 STATE_SIZES = (4, 8, 16)      # N, instantiated in the CUDA source
@@ -54,6 +54,7 @@ def scan_smem_bytes(N: int, itemsize: int) -> int:
 
 
 def _check(u, dt, a, b, c, h0, out):
+    refuse_grad(NAME, u, dt, a, b, c, h0, out)
     ts = (u, dt, a, b, c, h0) + (() if out is None else (out,))
     if not all(t.is_cuda for t in ts):
         raise ValueError("mamba_scan kernel needs CUDA tensors; got "

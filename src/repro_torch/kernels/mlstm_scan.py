@@ -19,7 +19,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, refuse_grad
 
 NAME = "mlstm_scan"
 DEFAULT_CHUNK = 128     # the TPU kernel's default
@@ -54,6 +54,7 @@ def scan_smem_bytes(hd: int, et: int) -> int:
 
 
 def _check(q, k, v, i_gate, f_gate, c0, out, n0, n_out, chunk):
+    refuse_grad(NAME, q, k, v, i_gate, f_gate, c0, out, n0, n_out)
     states = tuple(t for t in (c0, out, n0, n_out) if t is not None)
     ts = (q, k, v, i_gate, f_gate) + states
     if not all(t.is_cuda for t in ts):

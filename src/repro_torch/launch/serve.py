@@ -46,10 +46,12 @@ def _sample(logits: torch.Tensor, scfg: ServeConfig,
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
+@torch.inference_mode()
 def generate(cfg: mc.ModelConfig, model: LM, prompts, scfg: ServeConfig, *,
              device="cuda") -> np.ndarray:
     """prompts: (B, S_prompt) ints — one wave.  Returns (B, new_tokens)
-    int32.  ``model`` must live on ``device``."""
+    int32.  ``model`` must live on ``device``.  Runs under
+    ``torch.inference_mode()``: serving records no graph."""
     dev = resolve(device)
     if model.embed.device != dev:
         raise ValueError(f"model is on {model.embed.device}, not {dev}")

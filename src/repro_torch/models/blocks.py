@@ -41,6 +41,8 @@ FFN_KINDS = ATTN_KINDS + ("mamba",)     # the kinds that carry an FFN
 _NOT_PORTED = {
     "attn_local": "ROADMAP Queue 1 item 5 (local attention, gemma)",
     "mrope": "ROADMAP Queue 1 item 6 (other input modes, M-RoPE)",
+    "compress": "ROADMAP Queue 1 item 8 (optim/compress.py, int8 "
+                "gradients)",
 }
 
 

@@ -4,20 +4,28 @@
 layer: ``mixer`` and ``ffn`` subtrees whose parameters are named and nested
 as the JAX leaves (an MoE FFN holds ``ffn/moe/router`` and the experts).
 The JAX package's ``lax.scan`` over stacked periods becomes a plain loop.
-The parameters do not require gradients: the port runs inference only.
 
 Entry points, as in the JAX package:
-  forward(batch)                 train-mode logits + masked shifted NLL
+  forward(batch, remat=...)      train-mode logits + masked shifted NLL
   prefill(batch, max_len)        last-position logits + the filled cache
   decode_step(batch, cache, pos) one token against the cache (in place)
+
+The parameters require grad.  ``forward`` records a graph when grad is
+enabled; the kernels have no backward and refuse inputs that require grad,
+so a training forward takes the plain path (``plain=True``), as the JAX
+package differentiates its plain attention and scans.  ``prefill`` and
+``decode_step`` run under ``torch.inference_mode()``: serving builds no
+graph, and its in-place cache writes stay legal.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..device import resolve
 from .blocks import ATTN_KINDS, Ctx, layer_apply, layer_specs, mixer, \
@@ -36,8 +44,7 @@ class ParamTree(nn.Module):
         for name, s in specs.items():
             if isinstance(s, PSpec):
                 self.register_parameter(name, nn.Parameter(
-                    torch.empty(s.shape, dtype=dtype, device=device),
-                    requires_grad=False))
+                    torch.empty(s.shape, dtype=dtype, device=device)))
             else:
                 self.add_module(name, ParamTree(s, dtype, device))
 
@@ -85,8 +92,7 @@ class LM(nn.Module):
         for name, s in self.specs.items():
             if name != "layers":
                 self.register_parameter(name, nn.Parameter(
-                    torch.empty(s.shape, dtype=dtype, device=dev),
-                    requires_grad=False))
+                    torch.empty(s.shape, dtype=dtype, device=dev)))
         self.layers = nn.ModuleList(ParamTree(layer, dtype, dev)
                                     for layer in self.specs["layers"])
         # The plain PyTorch versions (attention, the chunked selective scan,
@@ -116,8 +122,11 @@ class LM(nn.Module):
         return None
 
     def run_layers(self, x, *, mode: str, positions, cache=None,
-                   pos_offset: int = 0, max_len: int = 0):
-        """Apply every layer; writes the cache in place.  Returns (x, aux)."""
+                   pos_offset: int = 0, max_len: int = 0,
+                   remat: str = "none", plain: Optional[bool] = None):
+        """Apply every layer; writes the cache in place.  Returns (x, aux).
+        ``plain`` overrides ``plain_kernels``; ``remat`` recomputes each
+        layer in the backward (``_remat_wrap``)."""
         cfg = self.cfg
         aux_total = 0.0
         rope = self.rope(positions)
@@ -126,9 +135,14 @@ class LM(nn.Module):
                       cache=None if cache is None else layer_cache(
                           cfg, cache, li),
                       pos_offset=pos_offset, max_len=max_len,
-                      plain=self.plain_kernels)
-            x, _, a = layer_apply(cfg, kind, layer_is_moe(cfg, li),
-                                  self.layers[li], x, ctx)
+                      plain=self.plain_kernels if plain is None else plain)
+
+            def layer(h, li=li, kind=kind, ctx=ctx):
+                h, _, a = layer_apply(cfg, kind, layer_is_moe(cfg, li),
+                                      self.layers[li], h, ctx)
+                return h, a
+
+            x, a = _remat_wrap(layer, remat)(x)
             aux_total = aux_total + a
         return x, aux_total
 
@@ -143,14 +157,18 @@ class LM(nn.Module):
         return softcap(logits, cfg.final_softcap)
 
     # -- entry points ---------------------------------------------------------
-    def forward(self, batch: Dict[str, torch.Tensor]):
-        """Train mode: next-token cross-entropy over the whole sequence
-        (forward only).  Returns (loss, logits)."""
+    def forward(self, batch: Dict[str, torch.Tensor], *, remat: str = "none",
+                plain: Optional[bool] = None):
+        """Train mode: next-token cross-entropy over the whole sequence.
+        Returns (loss, logits).  ``remat`` is "none", "dots" or "full"
+        (``_remat_wrap``); ``plain=True`` takes the plain path whatever
+        ``plain_kernels`` says (training does)."""
         cfg = self.cfg
         x = self.embed_inputs(batch)
         B, S, _ = x.shape
         positions = text_positions(B, S, device=x.device)
-        x, aux = self.run_layers(x, mode="train", positions=positions)
+        x, aux = self.run_layers(x, mode="train", positions=positions,
+                                 remat=remat, plain=plain)
         logits = self._head(x)
         # Shift: predict token t+1 at position t; ignore label < 0.
         lg = logits[:, :-1].float()
@@ -164,6 +182,7 @@ class LM(nn.Module):
             loss = loss + cfg.router_aux_coef * aux / max(1, cfg.n_layers)
         return loss, logits
 
+    @torch.inference_mode()
     def prefill(self, batch: Dict[str, torch.Tensor], max_len: int):
         """Process the prompt; return (last-position logits, cache, next_pos).
         The cache is ``init_cache`` in the activations' dtype (recurrent
@@ -177,6 +196,7 @@ class LM(nn.Module):
                                cache=cache, max_len=max_len)
         return self._head(x[:, -1:]), cache, S
 
+    @torch.inference_mode()
     def decode_step(self, batch: Dict[str, torch.Tensor], cache, pos: int):
         """One decode step at absolute position ``pos``; the cache is written
         in place and returned."""
@@ -187,6 +207,35 @@ class LM(nn.Module):
         x, _ = self.run_layers(x, mode="decode", positions=positions,
                                cache=cache, pos_offset=int(pos))
         return self._head(x), cache
+
+
+# ---------------------------------------------------------------------------
+# Rematerialization (the counterpart of the JAX package's ``lm._remat_wrap``)
+# ---------------------------------------------------------------------------
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default)
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    """"dots": keep the matrix products' outputs, recompute the rest."""
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_wrap(fn, remat: str):
+    """``fn`` recomputed in the backward: "full" saves only its inputs,
+    "dots" also the ``aten.mm`` / ``aten.bmm`` outputs (the JAX package
+    saves the dots without batch dims), "none" is ``fn`` itself.  The JAX
+    package wraps one scanned period; the port wraps each layer."""
+    if remat == "none":
+        return fn
+    if remat == "full":
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+    if remat == "dots":
+        return lambda *a: checkpoint(
+            fn, *a, use_reentrant=False,
+            context_fn=lambda: create_selective_checkpoint_contexts(
+                _save_products))
+    raise ValueError(f"unknown remat {remat!r}: none, dots or full")
 
 
 # ---------------------------------------------------------------------------

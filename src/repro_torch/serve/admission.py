@@ -146,6 +146,7 @@ class KernelDecode:
         kv = torch.randn((2, self.kv_heads, self.head_dim), generator=gen)
         return q, kv
 
+    @torch.inference_mode()
     def __call__(self, reqs: Sequence[StepRequest]) -> List[int]:
         idx = [self._slot_of(r.session) for r in reqs]
         qs, kvs, pos = [], [], []

@@ -183,3 +183,66 @@ def test_layer_parity_holds_jamba(monkeypatch):
 
 def test_layer_parity_holds_the_bf16_jamba(monkeypatch):
     hold_smoke_jamba(monkeypatch, torch.bfloat16, chip_smoke.TOL["bfloat16"])
+
+
+# ---------------------------------------------------------------------------
+# The training phase's helpers (phase 11)
+# ---------------------------------------------------------------------------
+def test_train_flops_and_memory_at_full_width():
+    """llama3.2-1b at full width, batch 1 x 4,096 tokens, remat "full":
+    about 47 TFLOP a step (30.4 + 6.6 + 10.2), 0.70 s at 67 TFLOP/s fp32;
+    19.8 GB of parameters, gradients and moments, 2.1 GB of one layer's
+    fp32 scores and 2.1 GB of fp32 logits."""
+    from repro_torch.configs import get_config
+    cfg = get_config("llama3.2-1b")
+    assert chip_smoke.spec_elements(cfg) == 1_235_814_400
+    assert chip_smoke.spec_elements(cfg) != cfg.param_count() \
+        == 1_235_847_168
+    f = chip_smoke.train_flops(cfg, 1, 4096)
+    assert f["params"] == 6 * 1_235_814_400 * 4096
+    assert f["attention"] == 3 * 4 * 32 * 64 * 4096 ** 2 * 16
+    assert f["recompute"] == 2 * (1_235_814_400 - 128_256 * 2048 - 2048) \
+        * 4096 + 4 * 32 * 64 * 4096 ** 2 * 16
+    assert (f["params"] / 1e12, f["attention"] / 1e12,
+            f["recompute"] / 1e12) == pytest.approx((30.37, 6.60, 10.17),
+                                                    abs=0.01)
+    assert f["total"] / 67e12 == pytest.approx(0.7036, abs=1e-3)
+    assert chip_smoke.train_flops(cfg, 1, 4096, remat="none")["recompute"] \
+        == 0
+    m = chip_smoke.train_memory_gb(cfg, 1, 4096)
+    assert m["state_gb"] == pytest.approx(19.77, abs=0.01)
+    assert m["scores_gb"] == pytest.approx(2.147, abs=1e-3)
+    assert m["logits_gb"] == pytest.approx(2.101, abs=1e-3)
+    assert 30 <= m["estimate_gb"] <= 35
+
+
+def test_directional_check_holds_the_gradient_and_catches_a_wrong_one():
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import init_model, smoke
+    cfg = smoke(get_config("llama3.2-1b"))
+    model = init_model(cfg, 0, device="cpu")
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (1, 64)))
+    batch = {"tokens": toks, "labels": toks}
+    _, grads = steps.loss_and_grads(model, batch)
+    params = list(model.parameters())
+    before = [p.detach().clone() for p in params]
+    g = [grads[n] for n, _ in model.named_parameters()]
+
+    def loss_at():
+        with torch.no_grad():
+            return model.forward(batch, plain=True)[0]
+
+    ok = chip_smoke.directional_check(loss_at, params, g, seed=1)
+    assert ok["rel"] <= 1e-2, ok
+    assert all(torch.equal(p, b) for p, b in zip(params, before))
+    wrong = chip_smoke.directional_check(loss_at, params,
+                                         [x * 1.05 for x in g], seed=1)
+    assert wrong["rel"] > 1e-2 and wrong["fd"] == ok["fd"]
+    dropped = chip_smoke.directional_check(
+        loss_at, params, [torch.zeros_like(x) if i % 2 else x
+                          for i, x in enumerate(g)], seed=1)
+    assert dropped["rel"] > 1e-2, dropped

@@ -56,7 +56,11 @@ def test_scan_sees_the_whole_port():
     names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
     assert {"kernels/ops.py", "kernels/mlstm_scan.py", "kernels/mamba_scan.py",
             "models/lm.py", "models/moe.py", "launch/serve.py",
-            "serve/admission.py", "convert.py"} <= names
+            "serve/admission.py", "convert.py", "optim/adamw.py",
+            "optim/schedules.py", "data/pipeline.py", "core/state.py",
+            "core/lifecycle.py", "core/control.py", "core/storage.py",
+            "ckpt/shards.py", "ckpt/commit.py", "ckpt/restore.py",
+            "launch/steps.py", "launch/train.py"} <= names
     assert (ROOT / "chip_smoke.py").exists()
 
 
@@ -92,3 +96,6 @@ def test_entry_points_refuse_the_cpu_by_default(no_cuda):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         generate(cfg, model, np.zeros((1, 4), np.int32),
                  ServeConfig(max_new_tokens=2, max_len=8))
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--steps", "1"])

@@ -134,9 +134,9 @@ def test_convert_covers_every_nested_leaf(jamba):
         sum(a.size for a in flat.values())
     period = len(cfg.pattern)
     np.testing.assert_array_equal(
-        model.layers[period + 3].ffn.moe.w_down.numpy(),
+        model.layers[period + 3].ffn.moe.w_down.detach().numpy(),
         flat["layers/p3/ffn/moe/w_down"][1])
-    np.testing.assert_array_equal(model.layers[2].mixer.a_log.numpy(),
+    np.testing.assert_array_equal(model.layers[2].mixer.a_log.detach().numpy(),
                                   flat["layers/p2/mixer/a_log"][0])
     for drop in ("layers/p1/ffn/moe/router", "layers/p0/mixer/conv"):
         with pytest.raises(KeyError, match="exactly once"):

@@ -75,7 +75,7 @@ def test_convert_covers_every_parameter(llama):
     assert len(list(model.parameters())) == \
         sum(a.shape[0] if k.startswith("layers/") else 1
             for k, a in flat.items())
-    np.testing.assert_array_equal(model.layers[1].mixer.wq.numpy(),
+    np.testing.assert_array_equal(model.layers[1].mixer.wq.detach().numpy(),
                                   flat["layers/p0/mixer/wq"][1])
     with pytest.raises(KeyError):
         convert.params_from_numpy(cfg, {k: v for k, v in flat.items()

@@ -144,7 +144,7 @@ def test_convert_covers_every_parameter(xlstm):
         sum(a.size for a in flat.values())
     period = len(cfg.pattern)
     np.testing.assert_array_equal(
-        model.layers[period + 5].mixer.r_gates.numpy(),
+        model.layers[period + 5].mixer.r_gates.detach().numpy(),
         flat["layers/p5/mixer/r_gates"][1])
     with pytest.raises(KeyError):
         convert.params_from_numpy(cfg, {k: v for k, v in flat.items()
