@@ -8,10 +8,12 @@ Phases, each of which must pass (any failure exits non-zero):
   2. build the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
      nvcc per source, started together); every entry function's
      registers, spills (none allowed) and shared memory, the HGMMA
-     instructions of the bf16 ``flash_attention`` and the TF32 HMMA of the
-     ``mlstm_scan`` prefill in their SASS;
+     instructions of both products of the bf16 ``flash_attention`` at
+     every head dim (16 to 256) and the TF32 HMMA of the ``mlstm_scan``
+     prefill in their SASS;
   3. hold each kernel against its plain PyTorch version on the card, fp32
-     and bf16, over the repo's sweeps and the serving paths' own shapes
+     and bf16, over the repo's sweeps (with head-dim-256 cases) and the
+     serving paths' own shapes, gemma2's at head dim 256 included
      (``mlstm_scan``: y, C and the normalizer n);
   4. full-width llama3.2-1b (16 layers) in fp32: the kernel path against
      the plain path on the prefill logits, 8 decode steps and the greedy
@@ -49,9 +51,22 @@ Phases, each of which must pass (any failure exits non-zero):
  12. one ``flash_attention`` and one ``flash_decode`` call under
      torch.profiler, each exactly one device kernel, and each scan call
      (one kernel; two for the ``mlstm_scan`` prefill: scores, then the
-     scan); then one ``{"kernels": [...]}`` line with each kernel's time
-     (events and profiler), bound, plain and library times at the serving
-     shapes, beside the timing method's floor.
+     scan); each kernel's time (events and profiler), bound, plain and
+     library times at the serving shapes (the attention kernels at head
+     dims 64, 128 and gemma2's 256), beside the timing method's floor;
+ 13. full-width gemma2-2b (26 layers, 13 of them local with window 4,096,
+     head dim 256, softcaps 50 and 30) in fp32: the kernel path against
+     the plain path as in phase 4, on one 4,352-token prompt;
+ 14. serve gemma2-2b in bf16 as in phase 5: 26 ``flash_attention``
+     launches in the prefill, 26 ``flash_decode`` launches a decode step;
+ 15. full-width gemma3-4b (34 layers: 5 periods of 5 local + 1 global and
+     4 remainder layers; dual rope theta, qk-norm) in fp32 as in phase 4,
+     on 2 prompts of 1,280 tokens (window 1,024);
+ 16. full-width minicpm-2b (40 layers, μP scaling, 36-head MHA) in fp32 as
+     in phase 4;
+then one ``{"kernels": [...]}`` line, whose launches are those of every
+served path's counted wave (phases 5, 8, 10, 14) and of the training runs
+(phase 11).
 The last line is ``{"ok": true, "device": {...}}``.  Without a card, or
 outside a checkout, the script exits non-zero and prints no result.
 """
@@ -74,9 +89,10 @@ ROOT = Path(__file__).resolve().parent
 
 # The repo's kernel tolerances (tests/test_kernels.py:28-29).
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
-# The repo's kernel sweeps (tests/test_kernels.py:35-44 and :76-86), the
-# attention sweep with one head-dim-128 case appended (the CPU tests pick
-# earlier cases by index).
+# The repo's kernel sweeps (tests/test_kernels.py:35-44 and :76-86), with
+# head-dim-128 and head-dim-256 cases appended (the CPU tests pick earlier
+# cases by index).  Head dim 256 is gemma2's and gemma3's: GQA g = 2, the
+# window, gemma2's softcap 50, ragged lengths.
 ATTN_SWEEP = [
     # (B, Hq, Hkv, Sq, Skv, hd, causal, window, softcap)
     (1, 2, 2, 64, 64, 32, True, 0, 0.0),      # MHA causal
@@ -87,6 +103,9 @@ ATTN_SWEEP = [
     (1, 2, 2, 64, 64, 32, False, 0, 0.0),     # non-causal
     (1, 8, 4, 160, 224, 64, True, 64, 30.0),  # everything at once, ragged
     (1, 4, 2, 80, 112, 128, True, 48, 30.0),  # head dim 128, all at once
+    (1, 4, 2, 96, 160, 256, True, 64, 50.0),  # head dim 256, all at once
+    (2, 8, 4, 130, 130, 256, True, 0, 0.0),   # head dim 256, ragged causal
+    (1, 2, 1, 64, 100, 256, False, 0, 50.0),  # head dim 256, non-causal
 ]
 DECODE_SWEEP = [
     # (B, Hq, Hkv, T, hd, kv_len, softcap)
@@ -98,6 +117,8 @@ DECODE_SWEEP = [
     (2, 8, 1, 192, 32, 130, 30.0),   # softcap + deep GQA group, ragged
     (1, 16, 2, 256, 64, 256, 0.0),   # wide GQA group in the q tile
     (4, 4, 2, 64, 128, 50, 20.0),    # big head dim, everything on
+    (2, 8, 4, 320, 256, 233, 50.0),  # gemma: head dim 256, g 2, ragged
+    (1, 2, 1, 96, 256, 70, 0.0),     # head dim 256, g 2, one KV head
 ]
 MLSTM_SWEEP = [                      # tests/test_kernels.py:157-162
     # (B, S, H, hd, chunk)
@@ -133,6 +154,15 @@ MLSTM_HD = 384
 # bf16 for serving (26.1 B, 52.1 GB).  Its attention runs at head dim 128.
 JAMBA = "jamba-v0.1-52b"
 JAMBA_FP32_LAYERS, JAMBA_SERVE_LAYERS = 8, 16
+# The gemma2/gemma3/minicpm phases, each model at full width and full
+# depth.  gemma2-2b is served (phase 14) with the wave above; its fp32
+# parity (phase 13) runs one prompt of 4,352 tokens, past the 4,096-key
+# window, so its 13 local layers skip whole key tiles in the kernels.
+# gemma3-4b's prompts of 1,280 tokens pass its window of 1,024; minicpm-2b
+# (no window) takes the standard wave's shape.  All three attend at head
+# dim 256 except minicpm (64, MHA over 36 heads).
+GEMMA2, GEMMA3, MINICPM = "gemma2-2b", "gemma3-4b", "minicpm-2b"
+FP32_PROMPTS = {GEMMA2: (1, 4352), GEMMA3: (2, 1280), MINICPM: (4, 256)}
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -167,17 +197,26 @@ def log(msg: str) -> None:
 # Bounds: the least time the card could take for the same work
 # ---------------------------------------------------------------------------
 def attention_bound(B, Hq, Hkv, Sq, Skv, hd, *, causal, q_offset=0,
-                    kv_len=None, dtype="bfloat16"):
+                    kv_len=None, window=0, dtype="bfloat16"):
     """(bound_ms, bound_by, bytes, flops) for one attention call: each input
-    read once (keys up to the valid length), the output written once, and
-    4·hd flops (QK and PV multiply-adds) per visible (query, key) pair."""
+    read once (of K and V, the keys some query can see: below the valid
+    length and, with ``causal``, the causal limit and the ``window``), the
+    output written once, and 4·hd flops (QK and PV multiply-adds) per
+    visible (query, key) pair.  As in the kernels, the window applies only
+    with ``causal``."""
     itemsize = 2 if dtype == "bfloat16" else 4
     valid = min(Skv, Skv if kv_len is None else kv_len)
     if causal:
-        pairs = sum(max(0, min(valid, q + q_offset + 1)) for q in range(Sq))
+        def span(pos):          # keys [lo, hi) that query position pos sees
+            lo = max(0, pos - window + 1) if window > 0 else 0
+            return lo, min(valid, pos + 1)
+        spans = [span(q + q_offset) for q in range(Sq)]
+        pairs = sum(max(0, hi - lo) for lo, hi in spans)
+        seen = max(0, spans[-1][1] - spans[0][0])
     else:
         pairs = Sq * valid
-    nbytes = itemsize * (2 * B * Hq * Sq * hd + 2 * B * Hkv * valid * hd)
+        seen = valid
+    nbytes = itemsize * (2 * B * Hq * Sq * hd + 2 * B * Hkv * seen * hd)
     flops = 4.0 * B * Hq * hd * pairs
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -254,19 +293,39 @@ def ptxas_report(log_text: str):
     return {k: tuple(v) for k, v in out.items()}
 
 
-def sass_forms(lib: Path, opcode: str) -> Dict[str, int]:
-    """{instruction form: count} of the ``opcode`` instructions in the
-    card's code in ``lib`` (``cuobjdump -sass``); a form is the opcode with
-    its modifiers and, for HGMMA, whether B is read transposed."""
+def sass_forms(lib: Path, opcode: str) -> Dict[str, Dict[str, int]]:
+    """{function: {instruction form: count}} of the ``opcode`` instructions
+    in the card's code in ``lib`` (``cuobjdump -sass``); a form is the
+    opcode with its modifiers and, for HGMMA, whether B is read
+    transposed."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     res = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                          text=True, timeout=120)
     check(res.returncode == 0, f"cuobjdump -sass {lib.name}: {res.stderr}")
-    forms: Dict[str, int] = {}
-    for m in re.finditer(rf"\b({opcode}\.[\w.]+)([^;]*);", res.stdout):
-        form = m.group(1) + (" tnspB" if ".tnspB" in m.group(2) else "")
-        forms[form] = forms.get(form, 0) + 1
-    return forms
+    out: Dict[str, Dict[str, int]] = {}
+    fn = ""
+    for line in res.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        for m in re.finditer(rf"\b({opcode}\.[\w.]+)([^;]*);", line):
+            form = m.group(1) + (" tnspB" if ".tnspB" in m.group(2) else "")
+            forms = out.setdefault(fn, {})
+            forms[form] = forms.get(form, 0) + 1
+    return out
+
+
+def wave_launches(cfg) -> Dict[str, int]:
+    """Kernel launches of one served wave (``generate``: the prefill, then
+    NEW - 1 decode steps) of ``cfg``: each attention layer (global or
+    local) launches flash_attention in the prefill and flash_decode in
+    every decode step; each mLSTM and mamba layer its scan in every pass."""
+    kinds = cfg.full_pattern
+    n_attn = sum(k in ("attn", "attn_local") for k in kinds)
+    return {"flash_attention": n_attn, "flash_decode": n_attn * (NEW - 1),
+            "mlstm_scan": kinds.count("mlstm") * NEW,
+            "mamba_scan": kinds.count("mamba") * NEW}
 
 
 # ---------------------------------------------------------------------------
@@ -389,7 +448,7 @@ def _layer_parity(name, model, prompts, tol=MODEL_TOL):
     import torch
 
     from repro_torch.models import init_cache, layer_cache, layer_is_moe
-    from repro_torch.models.blocks import Ctx, _scaled, ffn_apply, mixer
+    from repro_torch.models.blocks import _scaled, ffn_apply, mixer
     from repro_torch.models.layers import text_positions
     cfg = model.cfg
     B, S = prompts.shape
@@ -401,14 +460,16 @@ def _layer_parity(name, model, prompts, tol=MODEL_TOL):
 
     def one_pass(tokens, mode, pos):
         x = model.embed_inputs({"tokens": tokens})
-        rope = model.rope(text_positions(B, tokens.shape[1], pos,
-                                         device=tokens.device))
+        ropes = model.rope(text_positions(B, tokens.shape[1], pos,
+                                          device=tokens.device))
         for li, kind in enumerate(cfg.full_pattern):
             out = {}
             for plain in (False, True):
-                ctx = Ctx(mode=mode, rope=rope, cache=layer_cache(
-                    cfg, caches[plain], li), pos_offset=pos,
-                    max_len=MAX_LEN, plain=plain)
+                ctx = model.layer_ctx(kind, ropes, mode=mode,
+                                      cache=layer_cache(cfg, caches[plain],
+                                                        li),
+                                      pos_offset=pos, max_len=MAX_LEN,
+                                      plain=plain)
                 out[plain], _ = mixer(kind)[1](
                     cfg, model.layers[li]["mixer"], x, ctx)
             e = max_err(out[False], out[True]) / max(
@@ -723,7 +784,9 @@ def run(torch) -> int:
             elif "decode_kernel" in fn:
                 item = 2 if "bfloat16" in fn else 4
                 dyn = (f", {decode_attention.smem_bytes(4, 128, item)} B "
-                       f"dynamic at g 4, hd 128")
+                       f"dynamic at g 4, hd 128, "
+                       f"{decode_attention.smem_bytes(2, 256, item)} B at "
+                       f"g 2, hd 256")
             elif name == "mlstm_scan" and "scan_kernel" in fn and param:
                 et = int(param.group(1))
                 dyn = (f", {mlstm_scan.scan_smem_bytes(MLSTM_HD, et)} B "
@@ -735,13 +798,22 @@ def run(torch) -> int:
             log(f"[ptxas {name}] {fn}: {regs} registers, spill stores {st} "
                 f"B, spill loads {ld} B, {smem} B static shared{dyn}")
             check(st == 0 and ld == 0, f"{fn} spills ({st} B, {ld} B)")
+    # Both products of the bf16 kernel on the tensor cores at every head
+    # dim: S = QK^T (B K-major) and O += PV (B transposed).
     hgmma = sass_forms(_build.lib_path("flash_attention"), "HGMMA")
-    log(f"[sass flash_attention] {sum(hgmma.values())} HGMMA instructions: "
-        f"{json.dumps(hgmma)}")
-    check(any("tnspB" in f for f in hgmma) and
-          any("tnspB" not in f for f in hgmma),
-          "flash_attention's bf16 kernel issues no HGMMA for one product")
-    hmma = sass_forms(_build.lib_path("mlstm_scan"), "HMMA")
+    for hd in flash_attention.HEAD_DIMS:
+        forms = next((f for fn, f in hgmma.items()
+                      if f"attn_wgmma_kernelILi{hd}E" in fn), {})
+        log(f"[sass flash_attention] hd {hd}: {sum(forms.values())} HGMMA "
+            f"instructions: {json.dumps(forms)}")
+        check(any("tnspB" in f for f in forms) and
+              any("tnspB" not in f for f in forms),
+              f"flash_attention's bf16 kernel at hd {hd} runs no HGMMA "
+              f"for one product")
+    hmma = {}
+    for forms in sass_forms(_build.lib_path("mlstm_scan"), "HMMA").values():
+        for f, n in forms.items():
+            hmma[f] = hmma.get(f, 0) + n
     log(f"[sass mlstm_scan] {sum(hmma.values())} HMMA instructions: "
         f"{json.dumps(hmma)}")
     check(any(".TF32" in f for f in hmma),
@@ -756,7 +828,8 @@ def run(torch) -> int:
     errs = {"flash_attention": {}, "flash_decode": {}, "mlstm_scan": {},
             "mlstm_scan_state": {}, "mlstm_scan_n": {},
             "flash_attention_hd128": {},
-            "flash_decode_hd128": {}, "mamba_scan": {},
+            "flash_decode_hd128": {}, "flash_attention_hd256": {},
+            "flash_decode_hd256": {}, "mamba_scan": {},
             "mamba_scan_state": {}}
 
     def hold(name, got, want, dtype, what, main_shape=False, tol=None):
@@ -827,6 +900,8 @@ def run(torch) -> int:
 
     jcfg = get_config(JAMBA)
     JDI, JN, JHD = jcfg.ssm_expand * jcfg.d_model, jcfg.ssm_state, jcfg.hd
+    g2cfg = get_config(GEMMA2)
+    G_HQ, G_HKV, G_CAP = g2cfg.n_heads, g2cfg.n_kv_heads, g2cfg.attn_softcap
     n_checks = 0
     for dtype in ("float32", "bfloat16"):
         for case in ATTN_SWEEP:
@@ -846,6 +921,17 @@ def run(torch) -> int:
                    dict(causal=True, window=8, q_offset=48, kv_len=60)):
             hold("flash_attention", ops.flash_attention(q, k, v, **kw),
                  ref.attention_ref(q, k, v, **kw), dtype, str(kw))
+            n_checks += 1
+        # The same at head dim 256 (g = 2), in the model's layouts.
+        q = randn(16, (1, 80, 4, 256), dtype).transpose(1, 2)
+        k = randn(17, (1, 256, 2, 256), dtype).transpose(1, 2)
+        v = randn(18, (1, 256, 2, 256), dtype).transpose(1, 2)
+        for kw in (dict(causal=True, q_offset=100, kv_len=170),
+                   dict(causal=False, q_offset=100, kv_len=170),
+                   dict(causal=True, window=40, softcap=50.0, q_offset=100,
+                        kv_len=170)):
+            hold("flash_attention", ops.flash_attention(q, k, v, **kw),
+                 ref.attention_ref(q, k, v, **kw), dtype, f"hd 256 {kw}")
             n_checks += 1
         for case in DECODE_SWEEP:
             B, Hq, Hkv, T, hd, kv_len, cap = case
@@ -929,6 +1015,28 @@ def run(torch) -> int:
                  dtype, f"decode (4,32,1,{JHD})/(4,8,512,{JHD}) "
                  f"kv_len={kv_len}", main_shape=True)
         n_checks += 1 + len(DECODE_KV_LENS)
+        # gemma2-2b's attention at head dim 256 as served, softcap 50: the
+        # prefill (8 q heads, 4 KV heads) and decode steps against its
+        # (4,4,512,256) cache.
+        q = randn(180, (BATCH, PROMPT, G_HQ, 256), dtype).transpose(1, 2)
+        k = randn(181, (BATCH, PROMPT, G_HKV, 256), dtype).transpose(1, 2)
+        v = randn(182, (BATCH, PROMPT, G_HKV, 256), dtype).transpose(1, 2)
+        hold("flash_attention_hd256",
+             ops.flash_attention(q, k, v, softcap=G_CAP),
+             ref.attention_ref(q, k, v, softcap=G_CAP), dtype,
+             f"prefill (4,{G_HQ},256,256)/(4,{G_HKV},256,256)",
+             main_shape=True)
+        qd = randn(183, (BATCH, 1, G_HQ, 256), dtype).transpose(1, 2)
+        kc = randn(184, (BATCH, MAX_LEN, G_HKV, 256), dtype).transpose(1, 2)
+        vc = randn(185, (BATCH, MAX_LEN, G_HKV, 256), dtype).transpose(1, 2)
+        for kv_len in DECODE_KV_LENS:
+            hold("flash_decode_hd256",
+                 ops.flash_decode(qd, kc, vc, kv_len, softcap=G_CAP),
+                 ref.attention_ref(qd, kc, vc, causal=False, softcap=G_CAP,
+                                   kv_len=kv_len),
+                 dtype, f"decode (4,{G_HQ},1,256)/(4,{G_HKV},512,256) "
+                 f"kv_len={kv_len}", main_shape=True)
+        n_checks += 1 + len(DECODE_KV_LENS)
         # mamba_scan: the repo's sweep from a nonzero state, the state
         # carried across two calls, and Jamba's serving shapes (the prefill
         # from a zero state; a decode step updating the state in place).
@@ -976,6 +1084,8 @@ def run(torch) -> int:
 
     def free_running(name, model, prompts):
         cfg = model.cfg
+        B, S = prompts.shape
+        max_len = max(MAX_LEN, S + FP32_DECODE_STEPS)
 
         def both_paths(fn):
             model.plain_kernels = False
@@ -986,10 +1096,10 @@ def run(torch) -> int:
             return got, want
 
         (lk, ck, _), (lp, cp, _) = both_paths(
-            lambda: model.prefill({"tokens": prompts}, MAX_LEN))
+            lambda: model.prefill({"tokens": prompts}, max_len))
         e = max_err(lk, lp)
         check(bool(torch.isfinite(lk).all()) and lk.shape == (
-            BATCH, 1, cfg.padded_vocab), "fp32 prefill logits finite, shaped")
+            B, 1, cfg.padded_vocab), "fp32 prefill logits finite, shaped")
         check(e <= MODEL_TOL, f"fp32 prefill logits err {e:g} > {MODEL_TOL}")
         fp32_errs = [e]
         tok = lk[:, -1, :cfg.vocab_size].argmax(-1)
@@ -997,9 +1107,9 @@ def run(torch) -> int:
         for t in range(FP32_DECODE_STEPS):
             batch = {"tokens": tok[:, None]}
             model.plain_kernels = False
-            lk, ck = model.decode_step(batch, ck, PROMPT + t)
+            lk, ck = model.decode_step(batch, ck, S + t)
             model.plain_kernels = True
-            lp, cp = model.decode_step(batch, cp, PROMPT + t)
+            lp, cp = model.decode_step(batch, cp, S + t)
             model.plain_kernels = False
             e = max_err(lk, lp)
             fp32_errs.append(e)
@@ -1015,14 +1125,21 @@ def run(torch) -> int:
                       f"plain-path logit gap {gap:g}")
                 ties += 1
             tok = tk
-        log(f"[fp32] {name} kernel vs plain path: prefill + "
-            f"{FP32_DECODE_STEPS} decode logits max abs err "
+        log(f"[fp32] {name} kernel vs plain path, {B} x {S} tokens: prefill "
+            f"+ {FP32_DECODE_STEPS} decode logits max abs err "
             f"{max(fp32_errs):g} (tol {MODEL_TOL}), relative "
             f"{rel_err(lk, lp):g}; greedy tokens equal ({ties} near-ties)")
 
-    def fp32_phase(cfg, layerwise=False, free=True):
+    def make_prompts(cfg, shape=(BATCH, PROMPT)):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(1)
+        return torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                             device=dev)
+
+    def fp32_phase(cfg, layerwise=False, free=True, shape=(BATCH, PROMPT)):
         """The fp32 model of ``cfg``: ``layer_parity`` if ``layerwise``,
-        then ``fp32_parity`` if ``free``; the model is freed after."""
+        then ``fp32_parity`` if ``free``, on prompts of ``shape``; the model
+        is freed after."""
         t0 = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
         model = init_model(cfg, 0, dtype=torch.float32, device=dev)
@@ -1031,10 +1148,7 @@ def run(torch) -> int:
         log(f"[fp32] {cfg.name}: {cfg.n_layers} layers, {n_params} "
             f"parameters, init {time.perf_counter() - t0:.1f} s, peak "
             f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(1)
-        prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
-                                generator=gen, device=dev)
+        prompts = make_prompts(cfg, shape)
         t0 = time.perf_counter()
         if layerwise:
             layer_parity(cfg.name, model, prompts)
@@ -1119,10 +1233,8 @@ def run(torch) -> int:
         log(f"[serve] {json.dumps(serve)}")
         return model, launches
 
-    model, serve_launches = serve_phase(cfg, prompts, {
-        "flash_attention": cfg.n_layers,
-        "flash_decode": cfg.n_layers * (NEW - 1), "mlstm_scan": 0,
-        "mamba_scan": 0}, bf16_logits_parity)
+    model, serve_launches = serve_phase(cfg, prompts, wave_launches(cfg),
+                                        bf16_logits_parity)
 
     # -- 6. continuous batching on KernelDecode --------------------------------
     sessions, steps = 16, 8
@@ -1164,10 +1276,8 @@ def run(torch) -> int:
     # kernel is held inside the model layer by layer, in fp32 and in bf16.
     xcfg = get_config(XLSTM)
     xprompts = fp32_phase(xcfg, layerwise=True, free=False)
-    n_mlstm = sum(kind == "mlstm" for kind in xcfg.full_pattern)
-    model, xlstm_launches = serve_phase(xcfg, xprompts, {
-        "flash_attention": 0, "flash_decode": 0,
-        "mlstm_scan": n_mlstm * NEW, "mamba_scan": 0},
+    model, xlstm_launches = serve_phase(
+        xcfg, xprompts, wave_launches(xcfg),
         lambda model, prompts, _: {"bf16_layer_parity": layer_parity(
             XLSTM, model, prompts, tol=TOL["bfloat16"])})
     del model
@@ -1184,11 +1294,8 @@ def run(torch) -> int:
         f"{jcfg.expert_d_ff}, di {JDI}, N {JN}, head dim {JHD})")
     jprompts = fp32_phase(jcfg1, layerwise=True, free=True)
     jcfg2 = dataclasses.replace(jcfg, n_layers=JAMBA_SERVE_LAYERS)
-    kinds = jcfg2.full_pattern
-    n_mamba, n_attn = kinds.count("mamba"), kinds.count("attn")
-    model, jamba_launches = serve_phase(jcfg2, jprompts, {
-        "flash_attention": n_attn, "flash_decode": n_attn * (NEW - 1),
-        "mlstm_scan": 0, "mamba_scan": n_mamba * NEW},
+    model, jamba_launches = serve_phase(
+        jcfg2, jprompts, wave_launches(jcfg2),
         lambda model, prompts, _: {"bf16_layer_parity": layer_parity(
             JAMBA, model, prompts, tol=TOL["bfloat16"])})
     # The decode floor: a step reads every weight once (the embedding only
@@ -1243,15 +1350,16 @@ def run(torch) -> int:
     floor_ms = cold_ms(lambda: one.add_(1))
     log(f"[timing] one-element add_ by the same method: {floor_ms:.5f} ms")
 
-    def attention_times(hd, seed):
+    def attention_times(hd, seed, hq=32, hkv=8):
         """flash_attention (prefill) and flash_decode (one step at kv_len)
-        at the serving shapes with head dim ``hd``, bf16: device ms of the
-        kernel, of the plain version and of SDPA, and the bounds."""
-        dtype = "bfloat16"
-        q = randn(seed, (BATCH, PROMPT, 32, hd), dtype).transpose(1, 2)
-        k = randn(seed + 1, (BATCH, PROMPT, 8, hd), dtype).transpose(1, 2)
-        v = randn(seed + 2, (BATCH, PROMPT, 8, hd), dtype).transpose(1, 2)
-        ke, ve = (t.repeat_interleave(4, dim=1).contiguous() for t in (k, v))
+        at the serving shapes with head dim ``hd`` and ``hq`` / ``hkv``
+        heads, bf16: device ms of the kernel, of the plain version and of
+        SDPA, and the bounds."""
+        dtype, g = "bfloat16", hq // hkv
+        q = randn(seed, (BATCH, PROMPT, hq, hd), dtype).transpose(1, 2)
+        k = randn(seed + 1, (BATCH, PROMPT, hkv, hd), dtype).transpose(1, 2)
+        v = randn(seed + 2, (BATCH, PROMPT, hkv, hd), dtype).transpose(1, 2)
+        ke, ve = (t.repeat_interleave(g, dim=1).contiguous() for t in (k, v))
         qc = q.contiguous()
         fa = {
             "ms": cold_ms(lambda: ops.flash_attention(q, k, v, causal=True)),
@@ -1259,14 +1367,15 @@ def run(torch) -> int:
                                                           causal=True)),
             "library_ms": cold_ms(lambda: F.scaled_dot_product_attention(
                 qc, ke, ve, is_causal=True)),
-            "bound": attention_bound(BATCH, 32, 8, PROMPT, PROMPT, hd,
+            "bound": attention_bound(BATCH, hq, hkv, PROMPT, PROMPT, hd,
                                      causal=True),
-            "shape": f"q (4,32,256,{hd}) k,v (4,8,256,{hd}) bf16 causal",
+            "shape": f"q (4,{hq},256,{hd}) k,v (4,{hkv},256,{hd}) bf16 "
+                     f"causal",
         }
-        qd = randn(seed + 3, (BATCH, 1, 32, hd), dtype).transpose(1, 2)
-        kc = randn(seed + 4, (BATCH, MAX_LEN, 8, hd), dtype).transpose(1, 2)
-        vc = randn(seed + 5, (BATCH, MAX_LEN, 8, hd), dtype).transpose(1, 2)
-        kl, vl = (t[:, :, :kv_len].repeat_interleave(4, dim=1).contiguous()
+        qd = randn(seed + 3, (BATCH, 1, hq, hd), dtype).transpose(1, 2)
+        kc = randn(seed + 4, (BATCH, MAX_LEN, hkv, hd), dtype).transpose(1, 2)
+        vc = randn(seed + 5, (BATCH, MAX_LEN, hkv, hd), dtype).transpose(1, 2)
+        kl, vl = (t[:, :, :kv_len].repeat_interleave(g, dim=1).contiguous()
                   for t in (kc, vc))
         qdc = qd.contiguous()
         fd = {
@@ -1275,22 +1384,20 @@ def run(torch) -> int:
                 qd, kc, vc, causal=False, kv_len=kv_len)),
             "library_ms": cold_ms(lambda: F.scaled_dot_product_attention(
                 qdc, kl, vl)),
-            "bound": attention_bound(BATCH, 32, 8, 1, MAX_LEN, hd,
+            "bound": attention_bound(BATCH, hq, hkv, 1, MAX_LEN, hd,
                                      causal=False, kv_len=kv_len),
-            "shape": f"q (4,32,1,{hd}) cache (4,8,512,{hd}) bf16 kv_len "
-                     f"{kv_len}",
+            "shape": f"q (4,{hq},1,{hd}) cache (4,{hkv},512,{hd}) bf16 "
+                     f"kv_len {kv_len}",
         }
         return {"flash_attention": fa, "flash_decode": fd}
 
     # Each path's counted run (counters set to 0 just before it): the
-    # served waves, and the training runs, which launch none.
+    # served waves, and the training runs, which launch none.  gemma2-2b's
+    # wave (phase 14) joins after it has run; "launches" and
+    # "launches_by_path" are filled in then.
     by_path = {ARCH: serve_launches, f"{ARCH} train": train_launches,
                XLSTM: xlstm_launches,
                jcfg2.name: jamba_launches}
-
-    def launches_of(name):
-        per = {path: c[name] for path, c in by_path.items()}
-        return sum(per.values()), per
 
     def device_kernels(fn):
         """Names of the device activities (kernels, memsets, copies) of one
@@ -1344,17 +1451,16 @@ def run(torch) -> int:
     del qp, kp, qd, kc
 
     llama_t, jamba_t = attention_times(64, 20), attention_times(JHD, 140)
+    gemma_t = attention_times(256, 190, G_HQ, G_HKV)
     kernels = []
     for name, replaces in (
             ("flash_attention", "src/repro/kernels/flash_attention.py:85"),
             ("flash_decode", "src/repro/kernels/decode_attention.py:66")):
-        t, tj = llama_t[name], jamba_t[name]
-        total, per = launches_of(name)
+        t, tj, tg = llama_t[name], jamba_t[name], gemma_t[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces,
-            "launches": total, "launches_by_path": per,
             "max_abs_err": errs[name]["bfloat16"],
             "max_abs_err_fp32": errs[name]["float32"],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -1370,6 +1476,14 @@ def run(torch) -> int:
             "hd128_flops": tj["bound"][3],
             "hd128_max_abs_err": errs[f"{name}_hd128"]["bfloat16"],
             "hd128_max_abs_err_fp32": errs[f"{name}_hd128"]["float32"],
+            "hd256_ms": tg["ms"], "hd256_plain_ms": tg["plain_ms"],
+            "hd256_bound_ms": tg["bound"][0],
+            "hd256_bound_by": tg["bound"][1],
+            "hd256_library_ms": tg["library_ms"],
+            "hd256_shape": tg["shape"], "hd256_bytes": tg["bound"][2],
+            "hd256_flops": tg["bound"][3],
+            "hd256_max_abs_err": errs[f"{name}_hd256"]["bfloat16"],
+            "hd256_max_abs_err_fp32": errs[f"{name}_hd256"]["float32"],
             "bound_formula": "max(bytes / 3.35e12 B/s, flops / 989e12 "
                              "FLOP/s); bytes = inputs read once (keys up "
                              "to kv_len) + output; flops = 4*hd per visible "
@@ -1397,8 +1511,6 @@ def run(torch) -> int:
         "name": "mlstm_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mlstm_scan.cu",
         "replaces": "src/repro/kernels/mlstm_scan.py:73",
-        "launches": launches_of("mlstm_scan")[0],
-        "launches_by_path": launches_of("mlstm_scan")[1],
         "max_abs_err": errs["mlstm_scan"]["bfloat16"],
         "max_abs_err_fp32": errs["mlstm_scan"]["float32"],
         "max_abs_err_state": errs["mlstm_scan_state"]["bfloat16"],
@@ -1445,8 +1557,6 @@ def run(torch) -> int:
         "name": "mamba_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
         "replaces": "src/repro/kernels/mamba_scan.py:55",
-        "launches": launches_of("mamba_scan")[0],
-        "launches_by_path": launches_of("mamba_scan")[1],
         "max_abs_err": errs["mamba_scan"]["bfloat16"],
         "max_abs_err_fp32": errs["mamba_scan"]["float32"],
         "max_abs_err_state": errs["mamba_scan_state"]["bfloat16"],
@@ -1478,6 +1588,25 @@ def run(torch) -> int:
                          "recurrence); exps = B*S*di*N",
     })
     del flush
+
+    # -- 13.-16. gemma2-2b, gemma3-4b, minicpm-2b at full width ---------------
+    # Each at its published depth (the weights fit the card whole): the
+    # fp32 kernel path against the plain path on prompts longer than the
+    # local window (FP32_PROMPTS), and gemma2-2b served in bf16.
+    t_gemma = time.perf_counter()
+    fp32_phase(g2cfg, shape=FP32_PROMPTS[GEMMA2])                      # 13
+    model, by_path[GEMMA2] = serve_phase(                              # 14
+        g2cfg, make_prompts(g2cfg), wave_launches(g2cfg),
+        bf16_logits_parity)
+    del model
+    torch.cuda.empty_cache()
+    fp32_phase(get_config(GEMMA3), shape=FP32_PROMPTS[GEMMA3])         # 15
+    fp32_phase(get_config(MINICPM), shape=FP32_PROMPTS[MINICPM])       # 16
+    log(f"[gemma] phases 13-16 {time.perf_counter() - t_gemma:.1f} s")
+
+    for entry in kernels:
+        per = {path: c[entry["name"]] for path, c in by_path.items()}
+        entry["launches"], entry["launches_by_path"] = sum(per.values()), per
 
     log(card)
     print(json.dumps({"kernels": kernels}))

@@ -10,11 +10,13 @@ from typing import List
 
 from ..models.config import ModelConfig
 
-ARCH_IDS: List[str] = ["llama3_2_1b", "xlstm_125m", "jamba_v0_1_52b"]
+ARCH_IDS: List[str] = ["llama3_2_1b", "xlstm_125m", "jamba_v0_1_52b",
+                        "gemma2_2b", "gemma3_4b", "minicpm_2b"]
 
 # CLI ids use dashes / dots; module names use underscores.
 ALIASES = {"llama3.2-1b": "llama3_2_1b", "xlstm-125m": "xlstm_125m",
-           "jamba-v0.1-52b": "jamba_v0_1_52b"}
+           "jamba-v0.1-52b": "jamba_v0_1_52b", "gemma2-2b": "gemma2_2b",
+           "gemma3-4b": "gemma3_4b", "minicpm-2b": "minicpm_2b"}
 
 
 def get_config(arch: str) -> ModelConfig:

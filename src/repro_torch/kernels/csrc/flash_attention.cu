@@ -31,8 +31,15 @@
 //     blocks share an SM and the whole grid (512 blocks) is resident at
 //     once; 64-key tiles, a deeper ring, and issuing Q.K^T of tile t+1
 //     under P.V of tile t were all slower on the card.
+//   * Head dim 256 (gemma2, gemma3): the Q tile and two stages of K and V
+//     take 99,328 bytes of shared memory, so two blocks share an SM, not
+//     four; gemma2's serving prefill (128 blocks) is still resident at once.
+//     O is 64 x 256 fp32, 128 registers a thread, and P.V runs as two
+//     m64n128k16 wgmmas a 16-key slice, each on its own half of O and of
+//     V's columns, so no 128-register instruction form is needed.
 //   * Tiles sit in shared memory in wgmma's canonical layout: column blocks
-//     of 32/64/128 bytes a row (hd 16/32/64; hd 128 is two 128-byte blocks),
+//     of 32/64/128 bytes a row (hd 16/32/64; hd 128 and 256 are two and four
+//     128-byte blocks),
 //     16-byte chunks XOR-swizzled by the row within each 8-row atom, the
 //     descriptor's layout type matching the swizzle the copies wrote.
 //   * S = Q.K^T is wgmma m64n32k16 with both operands in shared memory (K's
@@ -60,7 +67,11 @@
 //     read neighbouring shared-memory words), a score is summed over the
 //     lanes with __shfl_xor_sync, and the butterfly leaves the same sum,
 //     hence the same running max and sum, on every lane of the row.  hd
-//     128 runs 4 lanes a row, 256 threads a block.
+//     128 runs 4 lanes a row, 256 threads a block; hd 256 runs 8 lanes a
+//     row, 512 threads a block, on 16-key tiles: 32-key fp32 tiles of K and
+//     V would be 64 KiB, over the 48 KiB of static shared memory, and a
+//     thread of a 512-thread block holds at most 128 registers (q, acc and
+//     the tile's scores are 32 + 32 + 16 of them).
 //   * The TPU grid's sequential KV axis becomes a loop over KV tiles inside
 //     the block.  Each tile is staged once in shared memory as fp32 and read
 //     by every thread of the block at the same address (a broadcast), so a
@@ -200,7 +211,7 @@ __global__ void __launch_bounds__(BQ * LANES) attn_kernel(AttnArgs a) {
 
 template <typename T, int HD>
 int launch_hd(const AttnArgs& a, int B, int Hq, cudaStream_t stream) {
-  constexpr int BK = 32;              // keys per tile
+  constexpr int BK = HD <= 128 ? 32 : 16;          // keys per tile
   constexpr int LANES = HD <= 64 ? 1 : HD / 32;   // lanes per query row
   const dim3 grid((a.Sq + BQ - 1) / BQ, Hq, B);
   attn_kernel<T, HD, BK, LANES><<<grid, BQ * LANES, 0, stream>>>(a);
@@ -214,6 +225,7 @@ int launch(const AttnArgs& a, int B, int Hq, int hd, cudaStream_t stream) {
     case 32: return launch_hd<T, 32>(a, B, Hq, stream);
     case 64: return launch_hd<T, 64>(a, B, Hq, stream);
     case 128: return launch_hd<T, 128>(a, B, Hq, stream);
+    case 256: return launch_hd<T, 256>(a, B, Hq, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -514,9 +526,18 @@ __global__ void __launch_bounds__(WG) attn_wgmma_kernel(AttnArgs a) {
   const float sl2 = a.scale * LOG2E;
   const float cap_in = a.softcap > 0.f ? a.scale / a.softcap : 0.f;
   const float cap_out = a.softcap * LOG2E;
-  float o[HD / 2];            // O fragment: o[4j + e], rows r0 (e < 2), r0 + 8
+  // O fragment in NO parts, one per P.V wgmma of a 16-key slice (n <= 128
+  // each): o[c][4j + e] is column 128 c + 8 j + 2 (lane % 4) + e % 2 of
+  // row r0 (e < 2) or r0 + 8.
+  constexpr int ON = HD / 2 < 64 ? HD / 2 : 64;
+  constexpr int NO = HD / 2 / ON;
+  static_assert(NO == 1 || L::ROWB == 128, "O parts are 128 columns");
+  float o[NO][ON];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  for (int c = 0; c < NO; ++c) {
+#pragma unroll
+    for (int i = 0; i < ON; ++i) o[c][i] = 0.f;
+  }
 
   for (int t = 0; t < n_tiles; ++t) {
     const int t0 = kv_begin + t * BKW;
@@ -600,19 +621,29 @@ __global__ void __launch_bounds__(WG) attn_wgmma_kernel(AttnArgs a) {
       pa[i] = pack_bf16(p0, p1);
     }
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) o[i] *= (i & 2) ? al1 : al0;
+    for (int c = 0; c < NO; ++c) {
+#pragma unroll
+      for (int i = 0; i < ON; ++i) o[c][i] *= (i & 2) ? al1 : al0;
+    }
 
-    // O += P V.
-    fence_regs(o);
+    // O += P V; part c of O takes V's columns from 128 c, two 128-byte
+    // column blocks further into the tile per part.
+#pragma unroll
+    for (int c = 0; c < NO; ++c) fence_regs(o[c]);
     fence_regs(pa);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BKW / 16; ++kk) {
-      wgmma_rs(o, pa + 4 * kk, desc_v<HD, BKW>(sv, kk));
+#pragma unroll
+      for (int c = 0; c < NO; ++c) {
+        wgmma_rs(o[c], pa + 4 * kk,
+                 desc_v<HD, BKW>(sv + c * 2 * KL::BLOCK, kk));
+      }
     }
     wgmma_commit();
     wgmma_wait_all();
-    fence_regs(o);
+#pragma unroll
+    for (int c = 0; c < NO; ++c) fence_regs(o[c]);
   }
   cp_async_wait_all();
 
@@ -626,13 +657,14 @@ __global__ void __launch_bounds__(WG) attn_wgmma_kernel(AttnArgs a) {
 #pragma unroll
   for (int j = 0; j < HD / 8; ++j) {
     const int col = 8 * j + 2 * (lane & 3);
+    const int c = 4 * j / ON, i = 4 * j % ON;
     if (row0 < a.Sq) {
       *reinterpret_cast<__nv_bfloat162*>(out + row0 * a.o_ss + col) =
-          __floats2bfloat162_rn(o[4 * j] * d0, o[4 * j + 1] * d0);
+          __floats2bfloat162_rn(o[c][i] * d0, o[c][i + 1] * d0);
     }
     if (row1 < a.Sq) {
       *reinterpret_cast<__nv_bfloat162*>(out + row1 * a.o_ss + col) =
-          __floats2bfloat162_rn(o[4 * j + 2] * d1, o[4 * j + 3] * d1);
+          __floats2bfloat162_rn(o[c][i + 2] * d1, o[c][i + 3] * d1);
     }
   }
 }
@@ -666,6 +698,7 @@ int launch_wgmma(const AttnArgs& a, int B, int Hq, int hd,
     case 32: return launch_wgmma_hd<32>(a, B, Hq, stream);
     case 64: return launch_wgmma_hd<64>(a, B, Hq, stream);
     case 128: return launch_wgmma_hd<128>(a, B, Hq, stream);
+    case 256: return launch_wgmma_hd<256>(a, B, Hq, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

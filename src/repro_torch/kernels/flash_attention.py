@@ -21,7 +21,7 @@ import torch
 from . import _build, refuse_grad
 
 NAME = "flash_attention"
-HEAD_DIMS = (16, 32, 64, 128)   # instantiated in the CUDA source
+HEAD_DIMS = (16, 32, 64, 128, 256)   # instantiated in the CUDA source
 DTYPES = (torch.float32, torch.bfloat16)
 
 BLOCK_Q = 64        # query rows per block (one warpgroup in bf16)

@@ -4,7 +4,7 @@ torch.profiler.
     PYTHONPATH=src python -m repro_torch.launch.profile [--arch A]
         [--n-layers L] [--out DIR] [--train]
 
-(``A`` defaults to ``llama3.2-1b``, e.g. ``xlstm-125m`` or
+(``A`` defaults to ``llama3.2-1b``, e.g. ``xlstm-125m``, ``gemma2-2b`` or
 ``jamba-v0.1-52b``; ``L`` cuts the depth to its first L layers, as
 ``--arch jamba-v0.1-52b --n-layers 16`` must to fit one 80 GB card;
 ``DIR`` defaults to ``build/profile``.)

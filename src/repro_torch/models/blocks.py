@@ -1,6 +1,7 @@
-"""Decoder blocks: the port of ``repro.models.blocks`` for the ``attn``
-kind, the ``mamba`` kind, the xLSTM kinds ``mlstm`` and ``slstm``, and the
-FFN, dense or MoE.
+"""Decoder blocks: the port of ``repro.models.blocks`` for the attention
+kinds ``attn`` and ``attn_local`` (the same block; the LM gives a local
+layer its window and rope theta), the ``mamba`` kind, the xLSTM kinds
+``mlstm`` and ``slstm``, and the FFN, dense or MoE.
 
 Every kind implements
   specs(cfg)                    -> {name: PSpec} for one layer
@@ -39,7 +40,6 @@ FFN_KINDS = ATTN_KINDS + ("mamba",)     # the kinds that carry an FFN
 
 # Where each block kind the port does not run yet is queued.
 _NOT_PORTED = {
-    "attn_local": "ROADMAP Queue 1 item 5 (local attention, gemma)",
     "mrope": "ROADMAP Queue 1 item 6 (other input modes, M-RoPE)",
     "compress": "ROADMAP Queue 1 item 8 (optim/compress.py, int8 "
                 "gradients)",
@@ -57,8 +57,8 @@ class Ctx:
     # (cos, sin) of the positions at the layer's rope theta
     # (layers.rope_cos_sin), None when the model has no attention.  The JAX
     # Ctx carries positions and theta and every layer recomputes the
-    # angles; here the LM computes them once per pass, which saves launches
-    # and gives the same numbers.
+    # angles; here the LM computes one table per theta once per pass
+    # (``LM.rope``), which saves launches and gives the same numbers.
     rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
     window: int = 0                 # 0 = global attention
     cache: Any = None               # the layer's cache dict (views, in place)
@@ -114,6 +114,8 @@ def attn_apply(cfg: ModelConfig, p: Mapping[str, torch.Tensor], x, ctx: Ctx):
         pos = ctx.pos_offset
         cache["k"][:, pos:pos + S] = k          # in place (JAX: functional)
         cache["v"][:, pos:pos + S] = v
+        # causal=False: decode ignores a local layer's window, as the JAX
+        # package does (the window applies only with causal).
         o = attend(q, cache["k"], cache["v"], causal=False, window=ctx.window,
                    cap=cfg.attn_softcap, q_offset=pos, kv_len=pos + S)
     else:
@@ -471,6 +473,7 @@ def ffn_apply(cfg: ModelConfig, p: Mapping[str, Any], x, is_moe: bool):
 # ===========================================================================
 MIXERS = {
     "attn": (attn_specs, attn_apply, attn_cache_shape),
+    "attn_local": (attn_specs, attn_apply, attn_cache_shape),
     "mamba": (mamba_specs, mamba_apply, mamba_cache_shape),
     "mlstm": (mlstm_specs, mlstm_apply, mlstm_cache_shape),
     "slstm": (slstm_specs, slstm_apply, slstm_cache_shape),

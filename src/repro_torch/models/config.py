@@ -2,15 +2,17 @@
 package's ``repro.models.config``, copied so the port imports nothing of it.
 
 The layer stack is described by a repeating ``pattern`` of block kinds.  The
-port ships the ``attn`` kind with a dense FFN (the llama3.2-1b serving path),
-the xLSTM kinds ``mlstm`` and ``slstm`` (xlstm-125m), and the ``mamba`` kind
-with the single-shard MoE (jamba-v0.1-52b); ``attn_local`` keeps its fields
-here so a config reads the same in both packages.  ``param_count`` is
-copied as it stands, including its mLSTM term ``3·di²/4`` where
-``mlstm_specs`` holds three ``di×di`` projections, and its mamba term,
-which counts ``di·(2N + 2)`` for ``w_bcdt``, ``w_dt``, ``dt_bias``,
-``a_log`` and ``d_skip`` where ``mamba_specs`` holds
-``di·(2N + dt_rank) + dt_rank·di + di·N + 2·di``.
+port ships the ``attn`` kind with a dense FFN (llama3.2-1b, minicpm-2b), the
+sliding-window ``attn_local`` kind with per-kind rope theta (gemma2-2b,
+gemma3-4b), the xLSTM kinds ``mlstm`` and ``slstm`` (xlstm-125m), and the
+``mamba`` kind with the single-shard MoE (jamba-v0.1-52b); the M-RoPE and
+modality fields are kept so a config reads the same in both packages.
+``param_count`` is copied as it stands, including its mLSTM term
+``3·di²/4`` where ``mlstm_specs`` holds three ``di×di`` projections, its
+mamba term, which counts ``di·(2N + 2)`` for ``w_bcdt``, ``w_dt``,
+``dt_bias``, ``a_log`` and ``d_skip`` where ``mamba_specs`` holds
+``di·(2N + dt_rank) + dt_rank·di + di·N + 2·di``, and its norms: three a
+layer where an attention layer's specs hold two, and no post norms.
 """
 from __future__ import annotations
 

@@ -113,13 +113,22 @@ class LM(nn.Module):
         x = self.embed[batch["tokens"]]
         return x * torch.tensor(self.cfg.embed_scale, dtype=x.dtype)
 
-    def rope(self, positions):
-        """The rope tables of ``positions`` for the attention layers; None
-        when the model has none (only attention layers rotate)."""
+    def rope(self, positions) -> Dict[float, Any]:
+        """{theta: rope tables of ``positions``}, one entry per theta that
+        the attention layers use (``kind_theta_window``); empty when the
+        model has no attention (only attention layers rotate)."""
         cfg = self.cfg
-        if any(k in ATTN_KINDS for k in cfg.pattern):
-            return rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
-        return None
+        thetas = {kind_theta_window(cfg, k)[0] for k in cfg.pattern
+                  if k in ATTN_KINDS}
+        return {th: rope_cos_sin(positions, cfg.hd, th)
+                for th in sorted(thetas)}
+
+    def layer_ctx(self, kind: str, ropes, **kw) -> Ctx:
+        """The ``Ctx`` of a layer of ``kind`` (the JAX package's
+        ``_layer_ctx``): its window and the rope tables of its theta from
+        ``ropes`` (``LM.rope``); ``kw`` are the other ``Ctx`` fields."""
+        theta, window = kind_theta_window(self.cfg, kind)
+        return Ctx(rope=ropes.get(theta), window=window, **kw)
 
     def run_layers(self, x, *, mode: str, positions, cache=None,
                    pos_offset: int = 0, max_len: int = 0,
@@ -129,13 +138,13 @@ class LM(nn.Module):
         layer in the backward (``_remat_wrap``)."""
         cfg = self.cfg
         aux_total = 0.0
-        rope = self.rope(positions)
+        ropes = self.rope(positions)
         for li, kind in enumerate(cfg.full_pattern):
-            ctx = Ctx(mode=mode, rope=rope,
-                      cache=None if cache is None else layer_cache(
-                          cfg, cache, li),
-                      pos_offset=pos_offset, max_len=max_len,
-                      plain=self.plain_kernels if plain is None else plain)
+            ctx = self.layer_ctx(
+                kind, ropes, mode=mode,
+                cache=None if cache is None else layer_cache(cfg, cache, li),
+                pos_offset=pos_offset, max_len=max_len,
+                plain=self.plain_kernels if plain is None else plain)
 
             def layer(h, li=li, kind=kind, ctx=ctx):
                 h, _, a = layer_apply(cfg, kind, layer_is_moe(cfg, li),
@@ -271,6 +280,17 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> Dict[str, Any]:
         kind = cfg.full_pattern[cfg.n_periods * period + r]
         out[f"rem{r}"] = mixer(kind)[2](cfg, batch, max_len)
     return out
+
+
+def kind_theta_window(cfg: ModelConfig, kind: str):
+    """(rope theta, window) of a layer of ``kind``: a local attention layer
+    attends within ``cfg.window`` and rotates at ``local_rope_theta`` when
+    it is set; every other layer is global at ``rope_theta``."""
+    if kind == "attn_local":
+        theta = cfg.rope_theta if cfg.local_rope_theta is None \
+            else cfg.local_rope_theta
+        return theta, cfg.window
+    return cfg.rope_theta, 0
 
 
 def layer_is_moe(cfg: ModelConfig, li: int) -> bool:

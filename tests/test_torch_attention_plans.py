@@ -49,8 +49,16 @@ def test_flash_attention_smem_fits_every_head_dim():
         q_tile = flash_attention.BLOCK_Q * hd * 2
         kv_stages = 4 * flash_attention.BLOCK_KV * hd * 2
         assert q_tile + kv_stages < need <= SMEM_LIMIT, hd
-        # Four blocks share an SM at every head dim (the grid is resident).
-        assert 4 * need <= SMEM_LIMIT, hd
+        # Blocks that share an SM: at least four up to hd 128, so the
+        # llama and Jamba serving grids (512 blocks) are resident at once;
+        # two at hd 256, where gemma2's serving grid (4 q tiles x 8 heads x
+        # batch 4 = 128 blocks) still is, on the H100's 132 SMs.
+        per_sm = SMEM_LIMIT // need
+        if hd <= 128:
+            assert per_sm >= 4, hd
+        else:
+            assert per_sm == 2, hd
+            assert 4 * 8 * 4 <= per_sm * 132
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

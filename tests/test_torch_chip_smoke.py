@@ -58,6 +58,76 @@ def test_causal_bound_counts_visible_pairs():
     assert by == "operations"
 
 
+def test_windowed_bound_counts_only_the_keys_in_the_window():
+    """A local layer's call: each query sees at most ``window`` keys, and
+    K and V are read only over the keys some query sees."""
+    _, _, nbytes, flops = chip_smoke.attention_bound(1, 1, 1, 6, 6, 8,
+                                                     causal=True, window=2)
+    assert flops == 4 * 8 * (1 + 2 + 2 + 2 + 2 + 2)
+    assert nbytes == 2 * (2 * 6 * 8 + 2 * 6 * 8)
+    # Queries at positions 10 and 11 with a window of 3 see keys 8-10 and
+    # 9-11: 6 pairs over 4 keys.
+    _, _, nbytes, flops = chip_smoke.attention_bound(
+        1, 2, 1, 2, 16, 8, causal=True, q_offset=10, window=3)
+    assert flops == 4 * 2 * 8 * 6
+    assert nbytes == 2 * (2 * 2 * 2 * 8 + 2 * 4 * 8)
+    # The window applies only with causal, as in the kernels.
+    assert chip_smoke.attention_bound(1, 1, 1, 4, 4, 8, causal=False,
+                                      window=2)[3] == 4 * 8 * 16
+    # gemma2's fp32 parity prompt (phase 13): 4,352 tokens against the
+    # 4,096-key window skips 256 * 257 / 2 pairs of a global layer's.
+    local = chip_smoke.attention_bound(1, 8, 4, 4352, 4352, 256,
+                                       causal=True, window=4096,
+                                       dtype="float32")
+    full = chip_smoke.attention_bound(1, 8, 4, 4352, 4352, 256,
+                                      causal=True, dtype="float32")
+    assert full[3] - local[3] == 4 * 8 * 256 * (256 * 257 // 2)
+    assert local[2] == full[2] and local[1] == full[1] == "operations"
+
+
+def test_hd256_bounds_at_gemma2_serving_shapes():
+    """Phase 12's head-dim-256 rows: the prefill q (4,8,256,256) against
+    k,v (4,4,256,256), causal, and a decode step against the (4,4,512,256)
+    cache at kv_len 272, bf16; both bound by their bytes."""
+    ms, by, nbytes, flops = chip_smoke.attention_bound(
+        4, 8, 4, 256, 256, 256, causal=True)
+    assert nbytes == 2 * (2 * 4 * 8 * 256 * 256 + 2 * 4 * 4 * 256 * 256)
+    assert flops == 4 * 4 * 8 * 256 * (256 * 257 // 2)
+    assert by == "bytes" and ms == pytest.approx(0.0038, abs=1e-4)
+    ms, by, nbytes, flops = chip_smoke.attention_bound(
+        4, 8, 4, 1, 512, 256, causal=False, kv_len=272)
+    assert nbytes == 2 * (2 * 4 * 8 * 256 + 2 * 4 * 4 * 272 * 256)
+    assert by == "bytes" and ms == pytest.approx(0.0013, abs=1e-4)
+
+
+def test_wave_launches_count_every_attention_kind():
+    """A served wave launches flash_attention once per attention layer,
+    local or global, in the prefill, and flash_decode once per attention
+    layer in each of its NEW - 1 decode steps; the scans once per layer
+    in every pass."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    new = chip_smoke.NEW
+    assert chip_smoke.wave_launches(get_config("gemma2-2b")) == {
+        "flash_attention": 26, "flash_decode": 26 * (new - 1),
+        "mlstm_scan": 0, "mamba_scan": 0}
+    assert chip_smoke.wave_launches(get_config("gemma3-4b"))[
+        "flash_decode"] == 34 * (new - 1)
+    assert chip_smoke.wave_launches(get_config("llama3.2-1b")) == {
+        "flash_attention": 16, "flash_decode": 16 * (new - 1),
+        "mlstm_scan": 0, "mamba_scan": 0}
+    xlstm = get_config("xlstm-125m")
+    assert chip_smoke.wave_launches(xlstm) == {
+        "flash_attention": 0, "flash_decode": 0,
+        "mlstm_scan": xlstm.full_pattern.count("mlstm") * new,
+        "mamba_scan": 0}
+    jamba = dataclasses.replace(get_config("jamba-v0.1-52b"), n_layers=16)
+    assert chip_smoke.wave_launches(jamba) == {
+        "flash_attention": 2, "flash_decode": 2 * (new - 1),
+        "mlstm_scan": 0, "mamba_scan": 14 * new}
+
+
 def test_mlstm_bound_counts_the_served_calls():
     """The serving shapes of xlstm-125m: the prefill is bound by the
     recurrence's operations (2.4 GFLOP, 44 MB) at the 3xTF32 rate the

@@ -164,27 +164,47 @@ def model_views(seed, B, S, N, hd, dtype, device):
     return randn(seed, (B, S, N, hd), dtype, device).transpose(1, 2)
 
 
-@pytest.mark.parametrize("hd", [64, 128], ids=["llama", "jamba"])
-def test_attention_kernels_at_the_serving_shapes(hd, cuda):
-    """bf16 prefill (4 x 256 tokens, 32 q heads, 8 KV heads) and a decode
-    step against the (4, 512, 8, hd) cache at kv_len 272, all as views."""
-    q = model_views(70, 4, 256, 32, hd, "bfloat16", cuda)
-    k = model_views(71, 4, 256, 8, hd, "bfloat16", cuda)
-    v = model_views(72, 4, 256, 8, hd, "bfloat16", cuda)
+@pytest.mark.parametrize("hd,hq,hkv,cap", [(64, 32, 8, 0.0),
+                                           (128, 32, 8, 0.0),
+                                           (256, 8, 4, 50.0)],
+                         ids=["llama", "jamba", "gemma2"])
+def test_attention_kernels_at_the_serving_shapes(hd, hq, hkv, cap, cuda):
+    """bf16 prefill (4 x 256 tokens, hq q heads, hkv KV heads, gemma2's
+    softcap) and a decode step against the (4, 512, hkv, hd) cache at
+    kv_len 272, all as views."""
+    q = model_views(70, 4, 256, hq, hd, "bfloat16", cuda)
+    k = model_views(71, 4, 256, hkv, hd, "bfloat16", cuda)
+    v = model_views(72, 4, 256, hkv, hd, "bfloat16", cuda)
     torch.testing.assert_close(
-        ops.flash_attention(q, k, v, causal=True).float(),
-        ref.attention_ref(q, k, v, causal=True).float(),
+        ops.flash_attention(q, k, v, causal=True, softcap=cap).float(),
+        ref.attention_ref(q, k, v, causal=True, softcap=cap).float(),
         rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
-    qd = model_views(73, 4, 1, 32, hd, "bfloat16", cuda)
-    kc = model_views(74, 4, 512, 8, hd, "bfloat16", cuda)
-    vc = model_views(75, 4, 512, 8, hd, "bfloat16", cuda)
+    qd = model_views(73, 4, 1, hq, hd, "bfloat16", cuda)
+    kc = model_views(74, 4, 512, hkv, hd, "bfloat16", cuda)
+    vc = model_views(75, 4, 512, hkv, hd, "bfloat16", cuda)
     torch.testing.assert_close(
-        ops.flash_decode(qd, kc, vc, 272).float(),
-        ref.attention_ref(qd, kc, vc, causal=False, kv_len=272).float(),
+        ops.flash_decode(qd, kc, vc, 272, softcap=cap).float(),
+        ref.attention_ref(qd, kc, vc, causal=False, softcap=cap,
+                          kv_len=272).float(),
         rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_window_at_gemma2_length(dtype, cuda):
+    """gemma2's local layer over one 4,352-token prompt (phase 13's): the
+    4,096-key window makes the last query tiles skip their first key
+    tiles; head dim 256, g = 2, softcap 50."""
+    q = model_views(76, 1, 4352, 8, 256, dtype, cuda)
+    k = model_views(77, 1, 4352, 4, 256, dtype, cuda)
+    v = model_views(78, 1, 4352, 4, 256, dtype, cuda)
+    kw = dict(causal=True, window=4096, softcap=50.0)
+    torch.testing.assert_close(
+        ops.flash_attention(q, k, v, **kw).float(),
+        ref.attention_ref(q, k, v, **kw).float(),
+        rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
 def test_flash_attention_offset_and_kv_len_bf16(hd, cuda):
     """A chunk of 80 queries at q_offset 100 against 256 keys of which 170
     are valid, causal and not, with a window and a softcap."""
@@ -241,9 +261,10 @@ def test_flash_decode_repeats_bitwise(cuda):
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
-    q = torch.zeros((1, 4, 8, 48), device=cuda)          # head_dim 48
-    with pytest.raises(ValueError, match="head_dim"):
-        ops.flash_attention(q, q, q)
+    for hd in (48, 112):                 # head dims no kernel instantiates
+        q = torch.zeros((1, 4, 8, hd), device=cuda)
+        with pytest.raises(ValueError, match="head_dim"):
+            ops.flash_attention(q, q, q)
     q = torch.zeros((1, 4, 1, 64), device=cuda, dtype=torch.float16)
     with pytest.raises(ValueError, match="dtypes"):
         ops.flash_decode(q, q, q, 1)
