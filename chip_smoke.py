@@ -12,9 +12,11 @@ Phases, each of which must pass (any failure exits non-zero):
      every head dim (16 to 256) and the TF32 HMMA of the ``mlstm_scan``
      prefill in their SASS;
   3. hold each kernel against its plain PyTorch version on the card, fp32
-     and bf16, over the repo's sweeps (with head-dim-256 cases) and the
-     serving paths' own shapes, gemma2's at head dim 256 included
-     (``mlstm_scan``: y, C and the normalizer n);
+     and bf16, over the repo's sweeps (with head-dim-256, GQA-16 and
+     24-head MHA cases) and the serving paths' own shapes, gemma2's at
+     head dim 256, qwen2-vl's (g 8) and qwen3-moe's (g 16) at head dim 128
+     and musicgen's MHA included (``mlstm_scan``: y, C and the normalizer
+     n);
   4. full-width llama3.2-1b (16 layers) in fp32: the kernel path against
      the plain path on the prefill logits, 8 decode steps and the greedy
      tokens;
@@ -53,7 +55,8 @@ Phases, each of which must pass (any failure exits non-zero):
      (one kernel; two for the ``mlstm_scan`` prefill: scores, then the
      scan); each kernel's time (events and profiler), bound, plain and
      library times at the serving shapes (the attention kernels at head
-     dims 64, 128 and gemma2's 256), beside the timing method's floor;
+     dims 64, 128 and gemma2's 256, and at the shapes of qwen2-vl,
+     qwen3-moe and musicgen), beside the timing method's floor;
  13. full-width gemma2-2b (26 layers, 13 of them local with window 4,096,
      head dim 256, softcaps 50 and 30) in fp32: the kernel path against
      the plain path as in phase 4, on one 4,352-token prompt;
@@ -64,9 +67,25 @@ Phases, each of which must pass (any failure exits non-zero):
      on 2 prompts of 1,280 tokens (window 1,024);
  16. full-width minicpm-2b (40 layers, μP scaling, 36-head MHA) in fp32 as
      in phase 4;
+ 17. full-width qwen2-vl-72b cut to 12 of its 80 layers in fp32 (52.4 GB):
+     the kernel path against the plain path as in phase 4 on the "mixed"
+     input mode, 4 prompts of 64 patch embeddings and 192 tokens under
+     M-RoPE;
+ 18. serve qwen2-vl-72b cut to 32 layers in bf16 (61.3 GB): the wave of
+     phase 5 with the mode's batch keys (``serve_wave``), 32
+     ``flash_attention`` and 992 ``flash_decode`` launches; decode ms a
+     token beside the weights' floor, and a profiled wave's device-busy
+     ms and idle share;
+ 19. musicgen-medium, all 48 layers, in fp32 on the "embeds" input mode:
+     kernel path against plain path on 4 x 256 frame embeddings and 8
+     decode steps, each fed a seeded frame embedding;
+ 20. serve musicgen-medium in bf16 as in phase 18;
+ 21. full-width qwen3-moe-235b-a22b cut to 4 of its 94 layers in fp32
+     (44.8 GB): as in phase 9, with the expert choices that differ
+     counted;
 then one ``{"kernels": [...]}`` line, whose launches are those of every
-served path's counted wave (phases 5, 8, 10, 14) and of the training runs
-(phase 11).
+served path's counted wave (phases 5, 8, 10, 14, 18, 20) and of the
+training runs (phase 11).
 The last line is ``{"ok": true, "device": {...}}``.  Without a card, or
 outside a checkout, the script exits non-zero and prints no result.
 """
@@ -92,7 +111,9 @@ TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 # The repo's kernel sweeps (tests/test_kernels.py:35-44 and :76-86), with
 # head-dim-128 and head-dim-256 cases appended (the CPU tests pick earlier
 # cases by index).  Head dim 256 is gemma2's and gemma3's: GQA g = 2, the
-# window, gemma2's softcap 50, ragged lengths.
+# window, gemma2's softcap 50, ragged lengths.  Then qwen3-moe's GQA group
+# of 16 at head dim 128 (in decode g·hd = 2,048, flash_decode's
+# MAX_GROUP_HD) and musicgen's MHA over 24 heads at head dim 64.
 ATTN_SWEEP = [
     # (B, Hq, Hkv, Sq, Skv, hd, causal, window, softcap)
     (1, 2, 2, 64, 64, 32, True, 0, 0.0),      # MHA causal
@@ -106,6 +127,8 @@ ATTN_SWEEP = [
     (1, 4, 2, 96, 160, 256, True, 64, 50.0),  # head dim 256, all at once
     (2, 8, 4, 130, 130, 256, True, 0, 0.0),   # head dim 256, ragged causal
     (1, 2, 1, 64, 100, 256, False, 0, 50.0),  # head dim 256, non-causal
+    (2, 32, 2, 100, 100, 128, True, 0, 30.0),  # g 16, hd 128, ragged
+    (1, 24, 24, 130, 130, 64, True, 0, 0.0),   # MHA over 24 heads, ragged
 ]
 DECODE_SWEEP = [
     # (B, Hq, Hkv, T, hd, kv_len, softcap)
@@ -119,6 +142,8 @@ DECODE_SWEEP = [
     (4, 4, 2, 64, 128, 50, 20.0),    # big head dim, everything on
     (2, 8, 4, 320, 256, 233, 50.0),  # gemma: head dim 256, g 2, ragged
     (1, 2, 1, 96, 256, 70, 0.0),     # head dim 256, g 2, one KV head
+    (2, 32, 2, 300, 128, 233, 30.0),  # g 16, hd 128: g·hd at the cap
+    (2, 24, 24, 160, 64, 97, 0.0),   # MHA over 24 heads, ragged
 ]
 MLSTM_SWEEP = [                      # tests/test_kernels.py:157-162
     # (B, S, H, hd, chunk)
@@ -163,6 +188,17 @@ JAMBA_FP32_LAYERS, JAMBA_SERVE_LAYERS = 8, 16
 # dim 256 except minicpm (64, MHA over 36 heads).
 GEMMA2, GEMMA3, MINICPM = "gemma2-2b", "gemma3-4b", "minicpm-2b"
 FP32_PROMPTS = {GEMMA2: (1, 4352), GEMMA3: (2, 1280), MINICPM: (4, 256)}
+# The stub input modes and the largest MoE, each at full width with the
+# standard wave's shape: qwen2-vl-72b ("mixed": 64 patch embeddings and
+# 192 tokens a prompt under M-RoPE; 0.878 B parameters a layer, so 12 of
+# 80 layers in fp32, 52.4 GB, and 32 in bf16 for serving, 61.3 GB),
+# musicgen-medium ("embeds": frame embeddings in, all 48 layers) and
+# qwen3-moe-235b-a22b (2.49 B parameters a layer, so 4 of 94 in fp32,
+# 44.8 GB).  Their prompts and frame embeddings are drawn from STUB_SEED.
+QWEN2VL, MUSICGEN, QWEN3MOE = ("qwen2-vl-72b", "musicgen-medium",
+                               "qwen3-moe-235b-a22b")
+QWEN2VL_FP32_LAYERS, QWEN2VL_SERVE_LAYERS, QWEN3MOE_FP32_LAYERS = 12, 32, 4
+STUB_SEED = 0
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -326,6 +362,99 @@ def wave_launches(cfg) -> Dict[str, int]:
     return {"flash_attention": n_attn, "flash_decode": n_attn * (NEW - 1),
             "mlstm_scan": kinds.count("mlstm") * NEW,
             "mamba_scan": kinds.count("mamba") * NEW}
+
+
+def decode_floor(cfg, batch, kv_len, itemsize=2):
+    """(ms, weight bytes, cache bytes): the least time of one decode step,
+    the bytes it must read once over 3.35 TB/s.  The weights: every layer's
+    and the head's, and an embeds model's frame projection; a step reads
+    only ``batch`` rows of an untied embedding table, and a mixed model's
+    step no patch, so neither is counted.  The cache: K and V of every
+    attention layer up to ``kv_len``."""
+    d = cfg.d_model
+    n = spec_elements(cfg)
+    if not cfg.tie_embeddings:
+        n -= cfg.padded_vocab * d
+    if cfg.input_mode == "mixed":
+        n -= d * d
+    n_attn = sum(k in ("attn", "attn_local") for k in cfg.full_pattern)
+    weights = itemsize * n
+    cache = itemsize * n_attn * 2 * batch * kv_len * cfg.n_kv_heads * cfg.hd
+    return (weights + cache) / HBM_BYTES_PER_S * 1e3, weights, cache
+
+
+# ---------------------------------------------------------------------------
+# The served wave with each input mode's batch keys
+# ---------------------------------------------------------------------------
+def prompt_batch(cfg, B, S, device, seed=1):
+    """A prompt of S positions with the keys of ``cfg.input_mode``, drawn on
+    ``device`` from ``seed``: S tokens; S frame embeddings; or the split of
+    the JAX package's ``batch_specs`` (``launch/steps.py:120-123``),
+    max(1, int(S · patch_frac)) patch embeddings (none at S = 1), then the
+    tokens."""
+    import torch
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    def randint(*shape):
+        return torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                             device=device)
+
+    if cfg.input_mode == "tokens":
+        return {"tokens": randint(B, S)}
+    if cfg.input_mode == "embeds":
+        return {"frame_embeds": randn(B, S, cfg.d_model)}
+    n_patch = max(1, int(S * cfg.patch_frac)) if S > 1 else 0
+    return {"patch_embeds": randn(B, n_patch, cfg.d_model),
+            "tokens": randint(B, S - n_patch)}
+
+
+def step_batch(cfg, tok, t, seed=1):
+    """The inputs of decode step ``t`` after the greedy tokens ``tok`` (B,):
+    the tokens, with a (B, 0, d) ``patch_embeds`` in the mixed mode, as the
+    JAX package's decode steps take them; an embeds model (whose EnCodec
+    frontend is a stub) takes a frame embedding drawn from (seed, t)."""
+    import torch
+    B = tok.shape[0]
+    if cfg.input_mode == "embeds":
+        gen = torch.Generator(device=tok.device)
+        gen.manual_seed(seed * 1_000_003 + t)
+        return {"frame_embeds": torch.randn((B, 1, cfg.d_model),
+                                            generator=gen, device=tok.device)}
+    out = {"tokens": tok[:, None]}
+    if cfg.input_mode == "mixed":
+        out["patch_embeds"] = torch.zeros((B, 0, cfg.d_model),
+                                          device=tok.device)
+    return out
+
+
+def serve_wave(cfg, model, batch, scfg, device, seed=1):
+    """One served wave, (B, max_new_tokens) int32 greedy tokens:
+    ``launch.serve.generate`` for token prompts.  The stub input modes run
+    its loop (the prefill, then ``max_new_tokens - 1`` decode steps, each
+    fed ``step_batch``): ``generate`` takes token prompts only, as the JAX
+    package's does."""
+    import torch
+
+    from repro_torch.launch.serve import generate
+    if cfg.input_mode == "tokens":
+        return generate(cfg, model, batch["tokens"], scfg, device=device)
+    check(scfg.temperature <= 0 and scfg.eos_id is None,
+          "the stub wave is greedy and has no EOS")
+    logits, cache, S = model.prefill(batch, scfg.max_len)
+    check(S + scfg.max_new_tokens <= scfg.max_len,
+          f"prompt {S} + {scfg.max_new_tokens} exceed {scfg.max_len}")
+    tok = logits[:, -1, :cfg.vocab_size].argmax(-1)
+    out = [tok]
+    for t in range(1, scfg.max_new_tokens):
+        logits, cache = model.decode_step(step_batch(cfg, tok, t, seed),
+                                          cache, S + t - 1)
+        tok = logits[:, -1, :cfg.vocab_size].argmax(-1)
+        out.append(tok)
+    return torch.stack(out, dim=1).cpu().numpy().astype("int32")
 
 
 # ---------------------------------------------------------------------------
@@ -742,7 +871,7 @@ def run(torch) -> int:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ops, ref
-    from repro_torch.launch.serve import ServeConfig, generate
+    from repro_torch.launch.serve import ServeConfig
     from repro_torch.models import init_model, layer_is_moe
     from repro_torch.serve import (AdmissionConfig, ContinuousBatcher,
                                    KernelDecode, StepRequest)
@@ -786,7 +915,9 @@ def run(torch) -> int:
                 dyn = (f", {decode_attention.smem_bytes(4, 128, item)} B "
                        f"dynamic at g 4, hd 128, "
                        f"{decode_attention.smem_bytes(2, 256, item)} B at "
-                       f"g 2, hd 256")
+                       f"g 2, hd 256, "
+                       f"{decode_attention.smem_bytes(16, 128, item)} B at "
+                       f"g 16, hd 128")
             elif name == "mlstm_scan" and "scan_kernel" in fn and param:
                 et = int(param.group(1))
                 dyn = (f", {mlstm_scan.scan_smem_bytes(MLSTM_HD, et)} B "
@@ -831,6 +962,14 @@ def run(torch) -> int:
             "flash_decode_hd128": {}, "flash_attention_hd256": {},
             "flash_decode_hd256": {}, "mamba_scan": {},
             "mamba_scan_state": {}}
+    # The attention shapes of the stub-mode and MoE models (phases 17-21):
+    # {tag: (Hq, Hkv, hd)}, qwen2-vl g 8 and qwen3-moe g 16 at hd 128,
+    # musicgen MHA at hd 64.
+    stub_shapes = {name: (c.n_heads, c.n_kv_heads, c.hd) for name, c in (
+        (n, get_config(n)) for n in (QWEN2VL, QWEN3MOE, MUSICGEN))}
+    for name in stub_shapes:
+        errs[f"flash_attention {name}"] = {}
+        errs[f"flash_decode {name}"] = {}
 
     def hold(name, got, want, dtype, what, main_shape=False, tol=None):
         torch.cuda.synchronize()
@@ -1037,6 +1176,32 @@ def run(torch) -> int:
                  dtype, f"decode (4,{G_HQ},1,256)/(4,{G_HKV},512,256) "
                  f"kv_len={kv_len}", main_shape=True)
         n_checks += 1 + len(DECODE_KV_LENS)
+        # qwen2-vl's, qwen3-moe's and musicgen's attention as served: the
+        # prefill and decode steps against a (4,Hkv,512,hd) cache.
+        for si, (name, (hq, hkv, hd)) in enumerate(stub_shapes.items()):
+            seed = 200 + 10 * si
+            q = randn(seed, (BATCH, PROMPT, hq, hd), dtype).transpose(1, 2)
+            k = randn(seed + 1, (BATCH, PROMPT, hkv, hd), dtype).transpose(
+                1, 2)
+            v = randn(seed + 2, (BATCH, PROMPT, hkv, hd), dtype).transpose(
+                1, 2)
+            hold(f"flash_attention {name}", ops.flash_attention(q, k, v),
+                 ref.attention_ref(q, k, v), dtype,
+                 f"{name} prefill (4,{hq},256,{hd})/(4,{hkv},256,{hd})",
+                 main_shape=True)
+            qd = randn(seed + 3, (BATCH, 1, hq, hd), dtype).transpose(1, 2)
+            kc = randn(seed + 4, (BATCH, MAX_LEN, hkv, hd), dtype).transpose(
+                1, 2)
+            vc = randn(seed + 5, (BATCH, MAX_LEN, hkv, hd), dtype).transpose(
+                1, 2)
+            for kv_len in DECODE_KV_LENS:
+                hold(f"flash_decode {name}",
+                     ops.flash_decode(qd, kc, vc, kv_len),
+                     ref.attention_ref(qd, kc, vc, causal=False,
+                                       kv_len=kv_len),
+                     dtype, f"{name} decode (4,{hq},1,{hd})/"
+                     f"(4,{hkv},512,{hd}) kv_len={kv_len}", main_shape=True)
+            n_checks += 1 + len(DECODE_KV_LENS)
         # mamba_scan: the repo's sweep from a nonzero state, the state
         # carried across two calls, and Jamba's serving shapes (the prefill
         # from a zero state; a decode step updating the state in place).
@@ -1068,24 +1233,23 @@ def run(torch) -> int:
     def rel_err(a, b):
         return max_err(a, b) / max(float(b.float().abs().max()), 1e-30)
 
-    def fp32_parity(name, model, prompts):
-        """Prefill and FP32_DECODE_STEPS greedy decode steps on the kernel
-        path and on the plain path: logits within MODEL_TOL, the same greedy
-        tokens except at near-ties.  For an MoE model, the expert choices
-        that differ between the two paths are counted and printed first."""
+    def fp32_parity(name, model, batch):
+        """Prefill of ``batch`` and FP32_DECODE_STEPS greedy decode steps
+        (``step_batch``) on the kernel path and on the plain path: logits
+        within MODEL_TOL, the same greedy tokens except at near-ties.  For
+        an MoE model, the expert choices that differ between the two paths
+        are counted and printed first."""
         with recorded_routes(model) as routes:
             try:
-                free_running(name, model, prompts)
+                free_running(name, model, batch)
             finally:
                 n, total = routes.differ()
                 if total:
                     log(f"[fp32] {name} expert choices that differ between "
                         f"the paths: {n} of {total} (token, router call)")
 
-    def free_running(name, model, prompts):
+    def free_running(name, model, batch):
         cfg = model.cfg
-        B, S = prompts.shape
-        max_len = max(MAX_LEN, S + FP32_DECODE_STEPS)
 
         def both_paths(fn):
             model.plain_kernels = False
@@ -1095,8 +1259,11 @@ def run(torch) -> int:
             model.plain_kernels = False
             return got, want
 
+        B = next(iter(batch.values())).shape[0]
+        S = sum(v.shape[1] for v in batch.values())       # patches + text
+        max_len = max(MAX_LEN, S + FP32_DECODE_STEPS)
         (lk, ck, _), (lp, cp, _) = both_paths(
-            lambda: model.prefill({"tokens": prompts}, max_len))
+            lambda: model.prefill(batch, max_len))
         e = max_err(lk, lp)
         check(bool(torch.isfinite(lk).all()) and lk.shape == (
             B, 1, cfg.padded_vocab), "fp32 prefill logits finite, shaped")
@@ -1105,11 +1272,11 @@ def run(torch) -> int:
         tok = lk[:, -1, :cfg.vocab_size].argmax(-1)
         ties = 0
         for t in range(FP32_DECODE_STEPS):
-            batch = {"tokens": tok[:, None]}
+            step = step_batch(cfg, tok, t, STUB_SEED)
             model.plain_kernels = False
-            lk, ck = model.decode_step(batch, ck, S + t)
+            lk, ck = model.decode_step(step, ck, S + t)
             model.plain_kernels = True
-            lp, cp = model.decode_step(batch, cp, S + t)
+            lp, cp = model.decode_step(step, cp, S + t)
             model.plain_kernels = False
             e = max_err(lk, lp)
             fp32_errs.append(e)
@@ -1125,21 +1292,22 @@ def run(torch) -> int:
                       f"plain-path logit gap {gap:g}")
                 ties += 1
             tok = tk
-        log(f"[fp32] {name} kernel vs plain path, {B} x {S} tokens: prefill "
+        keys = " + ".join(f"{k} {tuple(v.shape[1:])}"
+                          for k, v in batch.items())
+        log(f"[fp32] {name} kernel vs plain path, {B} x ({keys}): prefill "
             f"+ {FP32_DECODE_STEPS} decode logits max abs err "
             f"{max(fp32_errs):g} (tol {MODEL_TOL}), relative "
             f"{rel_err(lk, lp):g}; greedy tokens equal ({ties} near-ties)")
 
-    def make_prompts(cfg, shape=(BATCH, PROMPT)):
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(1)
-        return torch.randint(0, cfg.vocab_size, shape, generator=gen,
-                             device=dev)
+    def free_memory():
+        gc.collect()
+        torch.cuda.empty_cache()
 
-    def fp32_phase(cfg, layerwise=False, free=True, shape=(BATCH, PROMPT)):
+    def fp32_phase(cfg, layerwise=False, free=True, shape=(BATCH, PROMPT),
+                   seed=1):
         """The fp32 model of ``cfg``: ``layer_parity`` if ``layerwise``,
-        then ``fp32_parity`` if ``free``, on prompts of ``shape``; the model
-        is freed after."""
+        then ``fp32_parity`` if ``free``, on a ``prompt_batch`` of
+        ``shape`` drawn from ``seed``; the model is freed after."""
         t0 = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
         model = init_model(cfg, 0, dtype=torch.float32, device=dev)
@@ -1148,39 +1316,66 @@ def run(torch) -> int:
         log(f"[fp32] {cfg.name}: {cfg.n_layers} layers, {n_params} "
             f"parameters, init {time.perf_counter() - t0:.1f} s, peak "
             f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-        prompts = make_prompts(cfg, shape)
+        batch = prompt_batch(cfg, *shape, dev, seed)
         t0 = time.perf_counter()
         if layerwise:
-            layer_parity(cfg.name, model, prompts)
+            layer_parity(cfg.name, model, batch["tokens"])
         if free:
-            fp32_parity(cfg.name, model, prompts)
+            fp32_parity(cfg.name, model, batch)
         torch.cuda.synchronize()
         log(f"[fp32] {cfg.name}: parity {time.perf_counter() - t0:.1f} s, "
             f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
         del model
-        torch.cuda.empty_cache()
-        return prompts
+        free_memory()
+        return batch
 
     cfg = get_config(ARCH)
     prompts = fp32_phase(cfg)
 
     # -- 5. serve llama3.2-1b in bf16 through the kernels ----------------------
-    def bf16_logits_parity(model, prompts, lk):
+    def bf16_logits_parity(model, batch, lk):
         """The bf16 kernel path's prefill logits ``lk`` against the plain
         path's, within BF16_MODEL_TOL."""
         model.plain_kernels = True
-        lp, _, _ = model.prefill({"tokens": prompts}, MAX_LEN)
+        lp, _, _ = model.prefill(batch, MAX_LEN)
         model.plain_kernels = False
         err = max_err(lk, lp)
         check(err <= BF16_MODEL_TOL,
               f"bf16 prefill logits err {err:g} > {BF16_MODEL_TOL}")
         return {"bf16_prefill_logit_err_vs_plain": err}
 
-    def serve_phase(cfg, prompts, want_launches, parity):
-        """One counted wave (launch counters from 0), then the median of
-        three more waves and of three prefills alone; then
-        ``parity(model, prompts, prefill_logits)`` holds the bf16 kernel
-        path against the plain path and returns its errors."""
+    def profiled_wave(wave):
+        """One more wave under torch.profiler: its wall ms, the device-busy
+        ms (``launch.profile._busy_ms``: the union of the device activities'
+        intervals), the idle share and the device ms by activity name."""
+        from torch.profiler import ProfilerActivity, profile
+
+        from repro_torch.launch.profile import _busy_ms
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            wave()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        acts = [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = _busy_ms(acts)
+        by_name = {}
+        for e in acts:
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                (e.time_range.end - e.time_range.start) / 1e3
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+        return {"profiled_wave_ms": wall_ms, "device_busy_ms": busy,
+                "idle_share": 1 - busy / wall_ms,
+                "device_activities": len(acts),
+                "top_device_ms": [[n[:80], ms] for n, ms in top]}
+
+    def serve_phase(cfg, batch, want_launches, parity, profile=False):
+        """One counted wave of ``serve_wave`` over the prompt ``batch``
+        (launch counters from 0), then the median of three more waves and
+        of three prefills alone; then ``parity(model, batch,
+        prefill_logits)`` holds the bf16 kernel path against the plain path
+        and returns its errors; with ``profile``, ``profiled_wave``."""
         t0 = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
         model = init_model(cfg, 0, dtype=torch.bfloat16, device=dev)
@@ -1188,13 +1383,17 @@ def run(torch) -> int:
         init_s = time.perf_counter() - t0
         init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
         scfg = ServeConfig(max_new_tokens=NEW, max_len=MAX_LEN)
-        generate(cfg, model, prompts[:, :PROMPT // 4], dataclasses.replace(
-            scfg, max_new_tokens=4), device=dev)              # warm-up
+
+        def wave(b=batch, s=scfg):
+            return serve_wave(cfg, model, b, s, dev, STUB_SEED)
+
+        wave({k: v[:, :v.shape[1] // 4] for k, v in batch.items()},
+             dataclasses.replace(scfg, max_new_tokens=4))     # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        out = generate(cfg, model, prompts, scfg, device=dev)
+        out = wave()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = ops.launch_counts()
@@ -1208,28 +1407,37 @@ def run(torch) -> int:
         walls, prefills = [], []
         for _ in range(3):
             t1 = time.perf_counter()
-            generate(cfg, model, prompts, scfg, device=dev)
+            wave()
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t1) * 1e3)
             t1 = time.perf_counter()
-            lk, _, _ = model.prefill({"tokens": prompts}, MAX_LEN)
+            lk, _, _ = model.prefill(batch, MAX_LEN)
             torch.cuda.synchronize()
             prefills.append((time.perf_counter() - t1) * 1e3)
         wall_ms, prefill_ms = sorted(walls)[1], sorted(prefills)[1]
         check(bool(torch.isfinite(lk).all()), "bf16 prefill logits finite")
         check(int(out[0, 0]) == int(lk[0, -1, :cfg.vocab_size].argmax()),
               "first served token is the prefill's argmax")
-        errors = parity(model, prompts, lk)
+        errors = parity(model, batch, lk)
         decode_ms = (wall_ms - prefill_ms) / (NEW - 1)
-        serve = {"arch": cfg.name, "requests": BATCH, "prompt": PROMPT,
-                 "new_tokens": NEW, "max_len": MAX_LEN, "dtype": "bfloat16",
+        floor_ms, w_bytes, c_bytes = decode_floor(cfg, BATCH,
+                                                  PROMPT + NEW // 2)
+        serve = {"arch": cfg.name, "n_layers": cfg.n_layers,
+                 "input_mode": cfg.input_mode, "requests": BATCH,
+                 "prompt": PROMPT, "new_tokens": NEW, "max_len": MAX_LEN,
+                 "dtype": "bfloat16",
                  "counted_wave_ms": wall * 1e3, "wave_ms": walls,
                  "wall_ms": wall_ms, "prefill_ms": prefill_ms,
                  "decode_ms_per_token": decode_ms,
+                 "decode_floor_ms": floor_ms,
+                 "decode_floor_weights_gb": w_bytes / 1e9,
+                 "decode_floor_cache_gb": c_bytes / 1e9,
                  "tokens_per_s": BATCH * NEW / wall_ms * 1e3,
                  "peak_gb": peak_gb, "init_s": init_s,
                  "init_peak_gb": init_peak_gb, "launches": launches,
                  **errors}
+        if profile:
+            serve.update(profiled_wave(wave))
         log(f"[serve] {json.dumps(serve)}")
         return model, launches
 
@@ -1278,8 +1486,8 @@ def run(torch) -> int:
     xprompts = fp32_phase(xcfg, layerwise=True, free=False)
     model, xlstm_launches = serve_phase(
         xcfg, xprompts, wave_launches(xcfg),
-        lambda model, prompts, _: {"bf16_layer_parity": layer_parity(
-            XLSTM, model, prompts, tol=TOL["bfloat16"])})
+        lambda model, batch, _: {"bf16_layer_parity": layer_parity(
+            XLSTM, model, batch["tokens"], tol=TOL["bfloat16"])})
     del model
     torch.cuda.empty_cache()
 
@@ -1296,14 +1504,14 @@ def run(torch) -> int:
     jcfg2 = dataclasses.replace(jcfg, n_layers=JAMBA_SERVE_LAYERS)
     model, jamba_launches = serve_phase(
         jcfg2, jprompts, wave_launches(jcfg2),
-        lambda model, prompts, _: {"bf16_layer_parity": layer_parity(
-            JAMBA, model, prompts, tol=TOL["bfloat16"])})
-    # The decode floor: a step reads every weight once (the embedding only
-    # its 4 rows, which the count below ignores), and with the expert
-    # products as they stand (three batched products over all experts)
-    # every expert; reading only the picked experts (at most BATCH * k of
-    # them per MoE layer) would lower it.
-    param_bytes = 2 * sum(p.numel() for p in model.parameters())
+        lambda model, batch, _: {"bf16_layer_parity": layer_parity(
+            JAMBA, model, batch["tokens"], tol=TOL["bfloat16"])})
+    # The decode floor: a step reads every weight once (of the untied
+    # embedding table only its 4 rows, so ``decode_floor`` leaves it out),
+    # and with the expert products as they stand (three batched products
+    # over all experts) every expert; reading only the picked experts (at
+    # most BATCH * k of them per MoE layer) would lower it.
+    _, param_bytes, _ = decode_floor(jcfg2, BATCH, PROMPT + NEW // 2)
     n_moe = sum(layer_is_moe(jcfg2, li) for li in range(jcfg2.n_layers))
     expert_bytes = 2 * 3 * jcfg2.d_model * jcfg2.expert_d_ff
     picked = min(jcfg2.n_experts, BATCH * jcfg2.experts_per_token)
@@ -1452,6 +1660,13 @@ def run(torch) -> int:
 
     llama_t, jamba_t = attention_times(64, 20), attention_times(JHD, 140)
     gemma_t = attention_times(256, 190, G_HQ, G_HKV)
+    stub_t = {}
+    for si, (name, (hq, hkv, hd)) in enumerate(stub_shapes.items()):
+        stub_t[name] = attention_times(hd, 260 + 10 * si, hq, hkv)
+        for kname, t in stub_t[name].items():
+            log(f"[timing] {kname} {name}, {t['shape']}: {t['ms']:.5f} ms, "
+                f"bound {t['bound'][0]:.5f} ms ({t['bound'][1]}), plain "
+                f"{t['plain_ms']:.5f} ms, SDPA {t['library_ms']:.5f} ms")
     kernels = []
     for name, replaces in (
             ("flash_attention", "src/repro/kernels/flash_attention.py:85"),
@@ -1484,6 +1699,19 @@ def run(torch) -> int:
             "hd256_flops": tg["bound"][3],
             "hd256_max_abs_err": errs[f"{name}_hd256"]["bfloat16"],
             "hd256_max_abs_err_fp32": errs[f"{name}_hd256"]["float32"],
+            # The stub-mode and MoE models' shapes, keyed by model.
+            **{f"{arch}_{key}": value for arch, ts in stub_t.items()
+               for key, value in (
+                   ("ms", ts[name]["ms"]),
+                   ("plain_ms", ts[name]["plain_ms"]),
+                   ("bound_ms", ts[name]["bound"][0]),
+                   ("bound_by", ts[name]["bound"][1]),
+                   ("library_ms", ts[name]["library_ms"]),
+                   ("shape", ts[name]["shape"]),
+                   ("bytes", ts[name]["bound"][2]),
+                   ("flops", ts[name]["bound"][3]),
+                   ("max_abs_err", errs[f"{name} {arch}"]["bfloat16"]),
+                   ("max_abs_err_fp32", errs[f"{name} {arch}"]["float32"]))},
             "bound_formula": "max(bytes / 3.35e12 B/s, flops / 989e12 "
                              "FLOP/s); bytes = inputs read once (keys up "
                              "to kv_len) + output; flops = 4*hd per visible "
@@ -1596,13 +1824,49 @@ def run(torch) -> int:
     t_gemma = time.perf_counter()
     fp32_phase(g2cfg, shape=FP32_PROMPTS[GEMMA2])                      # 13
     model, by_path[GEMMA2] = serve_phase(                              # 14
-        g2cfg, make_prompts(g2cfg), wave_launches(g2cfg),
+        g2cfg, prompt_batch(g2cfg, BATCH, PROMPT, dev), wave_launches(g2cfg),
         bf16_logits_parity)
     del model
     torch.cuda.empty_cache()
     fp32_phase(get_config(GEMMA3), shape=FP32_PROMPTS[GEMMA3])         # 15
     fp32_phase(get_config(MINICPM), shape=FP32_PROMPTS[MINICPM])       # 16
     log(f"[gemma] phases 13-16 {time.perf_counter() - t_gemma:.1f} s")
+
+    # -- 17.-21. qwen2-vl-72b, musicgen-medium, qwen3-moe-235b-a22b -----------
+    # At full width; qwen2-vl and qwen3-moe cut in depth so the weights fit
+    # the card (QWEN2VL_*_LAYERS, QWEN3MOE_FP32_LAYERS).  The stub modes'
+    # waves run ``serve_wave`` with each mode's batch keys.
+    t_stub = time.perf_counter()
+    vcfg = get_config(QWEN2VL)
+    log(f"[qwen2-vl] depth cut: {vcfg.n_layers} -> {QWEN2VL_FP32_LAYERS} "
+        f"layers in fp32, {QWEN2VL_SERVE_LAYERS} in bf16; widths as "
+        f"published (d_model {vcfg.d_model}, {vcfg.n_heads}/"
+        f"{vcfg.n_kv_heads} heads of {vcfg.hd}, d_ff {vcfg.d_ff}, M-RoPE "
+        f"sections {vcfg.mrope_sections})")
+    fp32_phase(dataclasses.replace(vcfg, n_layers=QWEN2VL_FP32_LAYERS),  # 17
+               seed=STUB_SEED)
+    vcfg2 = dataclasses.replace(vcfg, n_layers=QWEN2VL_SERVE_LAYERS)
+    model, by_path[vcfg2.name] = serve_phase(                          # 18
+        vcfg2, prompt_batch(vcfg2, BATCH, PROMPT, dev, STUB_SEED),
+        wave_launches(vcfg2), bf16_logits_parity, profile=True)
+    del model
+    free_memory()
+    mcfg = get_config(MUSICGEN)
+    fp32_phase(mcfg, seed=STUB_SEED)                                   # 19
+    model, by_path[MUSICGEN] = serve_phase(                            # 20
+        mcfg, prompt_batch(mcfg, BATCH, PROMPT, dev, STUB_SEED),
+        wave_launches(mcfg), bf16_logits_parity)
+    del model
+    free_memory()
+    qcfg = get_config(QWEN3MOE)
+    log(f"[qwen3-moe] depth cut: {qcfg.n_layers} -> {QWEN3MOE_FP32_LAYERS} "
+        f"layers in fp32; widths as published (d_model {qcfg.d_model}, "
+        f"{qcfg.n_experts} experts top-{qcfg.experts_per_token} of d_ff "
+        f"{qcfg.expert_d_ff}, {qcfg.n_heads}/{qcfg.n_kv_heads} heads of "
+        f"{qcfg.hd})")
+    fp32_phase(dataclasses.replace(qcfg, n_layers=QWEN3MOE_FP32_LAYERS),  # 21
+               layerwise=True, seed=STUB_SEED)
+    log(f"[stub] phases 17-21 {time.perf_counter() - t_stub:.1f} s")
 
     for entry in kernels:
         per = {path: c[entry["name"]] for path, c in by_path.items()}

@@ -50,9 +50,14 @@ def _sample(logits: torch.Tensor, scfg: ServeConfig,
 def generate(cfg: mc.ModelConfig, model: LM, prompts, scfg: ServeConfig, *,
              device="cuda") -> np.ndarray:
     """prompts: (B, S_prompt) ints — one wave.  Returns (B, new_tokens)
-    int32.  ``model`` must live on ``device``.  Runs under
+    int32.  ``model`` must live on ``device`` and take token inputs (as
+    the JAX package's ``generate`` does).  Runs under
     ``torch.inference_mode()``: serving records no graph."""
     dev = resolve(device)
+    if cfg.input_mode != "tokens":
+        raise ValueError(f"generate takes token prompts; {cfg.name} takes "
+                         f"{cfg.input_mode!r} inputs: run LM.prefill and "
+                         f"LM.decode_step with that mode's batch keys")
     if model.embed.device != dev:
         raise ValueError(f"model is on {model.embed.device}, not {dev}")
     prompts = torch.as_tensor(prompts, dtype=torch.long, device=dev)

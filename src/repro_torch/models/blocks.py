@@ -38,9 +38,8 @@ MLSTM_CHUNK = 256   # mLSTM: chunkwise-parallel block size of the plain cell
 ATTN_KINDS = ("attn", "attn_local")
 FFN_KINDS = ATTN_KINDS + ("mamba",)     # the kinds that carry an FFN
 
-# Where each block kind the port does not run yet is queued.
+# Where each part the port does not run yet is queued.
 _NOT_PORTED = {
-    "mrope": "ROADMAP Queue 1 item 6 (other input modes, M-RoPE)",
     "compress": "ROADMAP Queue 1 item 8 (optim/compress.py, int8 "
                 "gradients)",
 }
@@ -55,7 +54,8 @@ def not_ported(what: str) -> NotImplementedError:
 class Ctx:
     mode: str                       # train | prefill | decode
     # (cos, sin) of the positions at the layer's rope theta
-    # (layers.rope_cos_sin), None when the model has no attention.  The JAX
+    # (layers.rope_cos_sin, or mrope_cos_sin under M-RoPE), None when the
+    # model has no attention.  The JAX
     # Ctx carries positions and theta and every layer recomputes the
     # angles; here the LM computes one table per theta once per pass
     # (``LM.rope``), which saves launches and gives the same numbers.
@@ -94,8 +94,6 @@ def attn_cache_shape(cfg: ModelConfig, batch: int, max_len: int):
 
 
 def attn_apply(cfg: ModelConfig, p: Mapping[str, torch.Tensor], x, ctx: Ctx):
-    if cfg.mrope:
-        raise not_ported("mrope")
     B, S, _ = x.shape
     nq, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     h = rms_norm(x, p["ln"], cfg.norm_eps)

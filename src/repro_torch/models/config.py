@@ -5,8 +5,8 @@ The layer stack is described by a repeating ``pattern`` of block kinds.  The
 port ships the ``attn`` kind with a dense FFN (llama3.2-1b, minicpm-2b), the
 sliding-window ``attn_local`` kind with per-kind rope theta (gemma2-2b,
 gemma3-4b), the xLSTM kinds ``mlstm`` and ``slstm`` (xlstm-125m), and the
-``mamba`` kind with the single-shard MoE (jamba-v0.1-52b); the M-RoPE and
-modality fields are kept so a config reads the same in both packages.
+``mamba`` kind with the single-shard MoE (jamba-v0.1-52b, qwen3-moe), and
+the three input modes with M-RoPE (qwen2-vl-72b, musicgen-medium).
 ``param_count`` is copied as it stands, including its mLSTM term
 ``3·di²/4`` where ``mlstm_specs`` holds three ``di×di`` projections, its
 mamba term, which counts ``di·(2N + 2)`` for ``w_bcdt``, ``w_dt``,

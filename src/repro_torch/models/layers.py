@@ -52,7 +52,9 @@ def init_tensor(spec: PSpec, generator: torch.Generator, *, dtype,
         return torch.ones(spec.shape, dtype=dtype, device=device)
     x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
                     device=device)
-    return (x * spec.stddev()).to(dtype)
+    # In place: the largest leaves (a 1.25 B-row embedding) are drawn next
+    # to a model that already fills most of the card.
+    return x.mul_(spec.stddev()).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -71,7 +73,7 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# RoPE
+# RoPE (standard, per-kind theta, M-RoPE)
 # ---------------------------------------------------------------------------
 def rope_freqs(hd: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, hd, 2, dtype=np.float64) / hd))
@@ -106,10 +108,48 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return rotate(x, *rope_cos_sin(positions, x.shape[-1], theta))
 
 
+def mrope_cos_sin(positions: torch.Tensor, hd: int, theta: float,
+                  sections: Tuple[int, int, int]):
+    """Qwen2-VL multimodal RoPE tables for ``rotate``.  ``positions`` is
+    (3, ..., S): the temporal, height and width streams.  ``sections``
+    splits the hd/2 frequency dims; dim j takes its angle from the stream
+    of the section it falls in.  Returns (cos, sin), each (..., S, 1, hd/2)
+    fp32, as ``rope_cos_sin``."""
+    assert sum(sections) == hd // 2, (sections, hd)
+    freqs = _rope_freqs_on(hd, float(theta), positions.device)
+    # The stream each frequency dim reads, laid out along the last axis.
+    sel = torch.cat([positions[i][..., None].expand(*positions.shape[1:], n)
+                     for i, n in enumerate(sections)], dim=-1)
+    ang = sel.float() * freqs                               # (..., S, hd/2)
+    return torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: Tuple[int, int, int]) -> torch.Tensor:
+    """x: (B, S, N, hd); positions: (3, B, S)."""
+    return rotate(x, *mrope_cos_sin(positions, x.shape[-1], theta, sections))
+
+
 def text_positions(batch: int, seq: int, offset: int = 0,
                    device=None) -> torch.Tensor:
     pos = torch.arange(seq, dtype=torch.int32, device=device) + offset
     return pos[None, :].expand(batch, seq)
+
+
+def mrope_positions(batch: int, n_patches: int, n_text: int,
+                    device=None) -> torch.Tensor:
+    """The stub VLM layout, (3, B, S) int32: image patches on a ceil(sqrt n)
+    grid (t = 0, h = row, w = column), then text at ``n_patches + i`` on all
+    three streams.  As in the JAX package, text starts at ``n_patches``,
+    not past the grid's largest index as in the published Qwen2-VL."""
+    grid = max(1, math.ceil(math.sqrt(max(1, n_patches))))
+    idx = np.arange(n_patches)
+    t_text = n_patches + np.arange(n_text)
+    pos = np.stack([np.concatenate([np.zeros(n_patches, np.int64), t_text]),
+                    np.concatenate([idx // grid, t_text]),
+                    np.concatenate([idx % grid, t_text])])     # (3, S)
+    pos = torch.tensor(pos, dtype=torch.int32, device=device)
+    return pos[:, None, :].expand(3, batch, n_patches + n_text)
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,8 @@ Entry points, as in the JAX package:
   forward(batch, remat=...)      train-mode logits + masked shifted NLL
   prefill(batch, max_len)        last-position logits + the filled cache
   decode_step(batch, cache, pos) one token against the cache (in place)
+A batch holds ``tokens``, ``frame_embeds`` or ``patch_embeds`` + ``tokens``
+as ``cfg.input_mode`` says (``LM.embed_inputs``), and ``labels`` to train.
 
 The parameters require grad.  ``forward`` records a graph when grad is
 enabled; the kernels have no backward and refuse inputs that require grad,
@@ -28,11 +30,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import resolve
-from .blocks import ATTN_KINDS, Ctx, layer_apply, layer_specs, mixer, \
-    not_ported
+from .blocks import ATTN_KINDS, Ctx, layer_apply, layer_specs, mixer
 from .config import ModelConfig
-from .layers import PSpec, dense, init_tensor, rms_norm, rope_cos_sin, \
-    softcap, text_positions
+from .layers import PSpec, dense, init_tensor, mrope_cos_sin, \
+    mrope_positions, rms_norm, rope_cos_sin, softcap, text_positions
 
 
 class ParamTree(nn.Module):
@@ -66,8 +67,6 @@ def _leaves(tree: ParamTree, specs: Dict[str, Any]):
 
 def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
     """Top-level specs plus one spec dict per layer (not stacked)."""
-    if cfg.input_mode != "tokens":
-        raise not_ported("mrope")
     d = cfg.d_model
     specs: Dict[str, Any] = {
         "embed": PSpec((cfg.padded_vocab, d), scale=0.02),
@@ -76,6 +75,8 @@ def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         specs["unembed"] = PSpec((d, cfg.padded_vocab))
+    if cfg.input_mode in ("embeds", "mixed"):
+        specs["frontend_proj"] = PSpec((d, d))
     return specs
 
 
@@ -110,16 +111,47 @@ class LM(nn.Module):
 
     # -- pieces -------------------------------------------------------------
     def embed_inputs(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        x = self.embed[batch["tokens"]]
+        """The stub frontends of ``cfg.input_mode``: "tokens" looks up
+        ``tokens``; "embeds" projects ``frame_embeds`` (B, S, d); "mixed"
+        puts the projected ``patch_embeds`` (B, P, d) before the embedded
+        ``tokens``.  The embeddings are cast to the table's dtype before
+        the projection, as in the JAX package."""
+        mode = self.cfg.input_mode
+        if mode == "tokens":
+            x = self.embed[batch["tokens"]]
+        elif mode == "embeds":
+            x = dense(batch["frame_embeds"].to(self.embed.dtype),
+                      self.frontend_proj)
+        else:
+            patches = dense(batch["patch_embeds"].to(self.embed.dtype),
+                            self.frontend_proj)
+            x = torch.cat([patches, self.embed[batch["tokens"]]], dim=1)
         return x * torch.tensor(self.cfg.embed_scale, dtype=x.dtype)
+
+    def positions(self, batch: Dict[str, torch.Tensor], B: int,
+                  S: int) -> torch.Tensor:
+        """Positions of a prompt of S embedded inputs (the JAX package's
+        ``_positions``): under M-RoPE the (3, B, S) stub layout, in which
+        the ``tokens`` are the text and the rest are patches; else 0..S-1."""
+        device = self.embed.device
+        if self.cfg.mrope:
+            n_text = batch["tokens"].shape[1] if "tokens" in batch else 0
+            return mrope_positions(B, S - n_text, n_text, device=device)
+        return text_positions(B, S, device=device)
 
     def rope(self, positions) -> Dict[float, Any]:
         """{theta: rope tables of ``positions``}, one entry per theta that
         the attention layers use (``kind_theta_window``); empty when the
-        model has no attention (only attention layers rotate)."""
+        model has no attention (only attention layers rotate).  Under
+        M-RoPE the tables are ``mrope_cos_sin``'s of the (3, B, S)
+        positions."""
         cfg = self.cfg
         thetas = {kind_theta_window(cfg, k)[0] for k in cfg.pattern
                   if k in ATTN_KINDS}
+        if cfg.mrope:
+            return {th: mrope_cos_sin(positions, cfg.hd, th,
+                                      cfg.mrope_sections)
+                    for th in sorted(thetas)}
         return {th: rope_cos_sin(positions, cfg.hd, th)
                 for th in sorted(thetas)}
 
@@ -175,7 +207,7 @@ class LM(nn.Module):
         cfg = self.cfg
         x = self.embed_inputs(batch)
         B, S, _ = x.shape
-        positions = text_positions(B, S, device=x.device)
+        positions = self.positions(batch, B, S)
         x, aux = self.run_layers(x, mode="train", positions=positions,
                                  remat=remat, plain=plain)
         logits = self._head(x)
@@ -200,7 +232,7 @@ class LM(nn.Module):
         B, S, _ = x.shape
         cache = init_cache(self.cfg, B, max_len, dtype=x.dtype,
                            device=x.device)
-        positions = text_positions(B, S, device=x.device)
+        positions = self.positions(batch, B, S)
         x, _ = self.run_layers(x, mode="prefill", positions=positions,
                                cache=cache, max_len=max_len)
         return self._head(x[:, -1:]), cache, S
@@ -211,7 +243,8 @@ class LM(nn.Module):
         in place and returned."""
         x = self.embed_inputs(batch)
         B, S, _ = x.shape
-        positions = torch.full((B, S), int(pos), dtype=torch.int32,
+        shape = (3, B, S) if self.cfg.mrope else (B, S)
+        positions = torch.full(shape, int(pos), dtype=torch.int32,
                                device=x.device)
         x, _ = self.run_layers(x, mode="decode", positions=positions,
                                cache=cache, pos_offset=int(pos))

@@ -128,6 +128,135 @@ def test_wave_launches_count_every_attention_kind():
         "mlstm_scan": 0, "mamba_scan": 14 * new}
 
 
+def test_wave_launches_of_the_stub_modes_and_qwen3_moe():
+    """Phases 18 and 20: qwen2-vl cut to 32 layers and musicgen whole, one
+    attention layer each; qwen3-moe's 94 layers would give the same
+    pattern."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    new = chip_smoke.NEW
+    qwen2vl = dataclasses.replace(get_config("qwen2-vl-72b"),
+                                  n_layers=chip_smoke.QWEN2VL_SERVE_LAYERS)
+    assert chip_smoke.wave_launches(qwen2vl) == {
+        "flash_attention": 32, "flash_decode": 992, "mlstm_scan": 0,
+        "mamba_scan": 0}
+    assert chip_smoke.wave_launches(get_config("musicgen-medium")) == {
+        "flash_attention": 48, "flash_decode": 1488, "mlstm_scan": 0,
+        "mamba_scan": 0}
+    assert chip_smoke.wave_launches(get_config("qwen3-moe-235b-a22b"))[
+        "flash_decode"] == 94 * (new - 1)
+
+
+def test_decode_floors_of_the_served_models():
+    """The bytes a bf16 decode step must read: qwen2-vl at 32 layers reads
+    its layers and its untied head (58.7 GB, 17.5 ms), not its embedding
+    table nor, with no patch, its frontend; musicgen reads its layers, its
+    frame projection and its tied table (3.6 GB, 1.09 ms).  The K/V cache
+    at the wave's middle length adds 0.14 and 0.32 GB."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    kv_len = chip_smoke.PROMPT + chip_smoke.NEW // 2
+    cfg = dataclasses.replace(get_config("qwen2-vl-72b"), n_layers=32)
+    ms, weights, cache = chip_smoke.decode_floor(cfg, 4, kv_len)
+    layers = chip_smoke.spec_elements(cfg, layers_only=True)
+    assert weights == 2 * (layers + 8192 * 152_064 + 8192)
+    assert weights / 1e9 == pytest.approx(58.66, abs=0.01)
+    assert cache == 2 * 32 * 2 * 4 * kv_len * 8 * 128
+    assert weights / 3.35e12 * 1e3 == pytest.approx(17.51, abs=0.01)
+    assert ms == pytest.approx((weights + cache) / 3.35e12 * 1e3)
+    mcfg = get_config("musicgen-medium")
+    ms, weights, cache = chip_smoke.decode_floor(mcfg, 4, kv_len)
+    assert weights == 2 * chip_smoke.spec_elements(mcfg)
+    assert weights / 3.35e12 * 1e3 == pytest.approx(1.085, abs=1e-3)
+    assert cache == 2 * 48 * 2 * 4 * kv_len * 24 * 64
+    llama = get_config("llama3.2-1b")
+    assert chip_smoke.decode_floor(llama, 4, kv_len)[1] / 3.35e12 * 1e3 \
+        == pytest.approx(0.74, abs=0.01)
+
+
+def test_prompt_batch_has_each_modes_keys():
+    """Token prompts are the earlier phases' (a generator seeded 1); a
+    mixed prompt splits as ``batch_specs`` (64 patches and 192 tokens at
+    256, none at 1); an embeds prompt is frame embeddings."""
+    from repro_torch.configs import get_config
+    llama = get_config("llama3.2-1b")
+    got = chip_smoke.prompt_batch(llama, 4, 256, "cpu")
+    want = torch.randint(0, llama.vocab_size, (4, 256),
+                         generator=torch.Generator().manual_seed(1))
+    assert list(got) == ["tokens"] and torch.equal(got["tokens"], want)
+    vl = get_config("qwen2-vl-72b")
+    b = chip_smoke.prompt_batch(vl, 4, 256, "cpu", seed=0)
+    assert b["patch_embeds"].shape == (4, 64, 8192)
+    assert b["tokens"].shape == (4, 192)
+    assert int(b["tokens"].max()) < vl.vocab_size
+    one = chip_smoke.prompt_batch(vl, 4, 1, "cpu")
+    assert one["patch_embeds"].shape == (4, 0, 8192)
+    assert one["tokens"].shape == (4, 1)
+    mg = chip_smoke.prompt_batch(get_config("musicgen-medium"), 4, 256,
+                                 "cpu", seed=0)
+    assert list(mg) == ["frame_embeds"]
+    assert mg["frame_embeds"].shape == (4, 256, 1536)
+    again = chip_smoke.prompt_batch(get_config("musicgen-medium"), 4, 256,
+                                    "cpu", seed=0)
+    assert torch.equal(mg["frame_embeds"], again["frame_embeds"])
+
+
+def test_step_batch_feeds_each_mode():
+    from repro_torch.configs import get_config
+    tok = torch.tensor([3, 1, 4, 1])
+    vl = chip_smoke.step_batch(get_config("qwen2-vl-72b"), tok, 2)
+    assert torch.equal(vl["tokens"], tok[:, None])
+    assert vl["patch_embeds"].shape == (4, 0, 8192)
+    mg = get_config("musicgen-medium")
+    s2 = chip_smoke.step_batch(mg, tok, 2)
+    assert list(s2) == ["frame_embeds"] and s2["frame_embeds"].shape == \
+        (4, 1, 1536)
+    assert torch.equal(s2["frame_embeds"],
+                       chip_smoke.step_batch(mg, tok, 2)["frame_embeds"])
+    assert not torch.equal(s2["frame_embeds"],
+                           chip_smoke.step_batch(mg, tok, 3)["frame_embeds"])
+    assert list(chip_smoke.step_batch(get_config("llama3.2-1b"), tok, 2)) \
+        == ["tokens"]
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-72b", "musicgen-medium",
+                                  "llama3.2-1b"])
+def test_serve_wave_is_the_generate_loop(arch):
+    """On the smoke configs: the stub modes' wave is the prefill and
+    greedy decode steps fed ``step_batch``; a token model's is
+    ``launch.serve.generate``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import ServeConfig, generate
+    from repro_torch.models import init_model, smoke
+    cfg = smoke(get_config(arch))
+    model = init_model(cfg, 0, device="cpu")
+    batch = chip_smoke.prompt_batch(cfg, 2, 12, "cpu", seed=0)
+    scfg = ServeConfig(max_new_tokens=5, max_len=20)
+    out = chip_smoke.serve_wave(cfg, model, batch, scfg, "cpu", seed=0)
+    assert out.shape == (2, 5) and str(out.dtype) == "int32"
+    if cfg.input_mode == "tokens":
+        np_want = generate(cfg, model, batch["tokens"], scfg, device="cpu")
+        assert (out == np_want).all()
+        return
+    logits, cache, S = model.prefill(batch, 20)
+    assert S == 12
+    tok = logits[:, -1, :cfg.vocab_size].argmax(-1)
+    want = [tok]
+    for t in range(1, 5):
+        logits, cache = model.decode_step(
+            chip_smoke.step_batch(cfg, tok, t, 0), cache, S + t - 1)
+        tok = logits[:, -1, :cfg.vocab_size].argmax(-1)
+        want.append(tok)
+    assert (out == torch.stack(want, 1).numpy()).all()
+    with pytest.raises(RuntimeError, match="greedy"):
+        chip_smoke.serve_wave(cfg, model, batch, dataclasses.replace(
+            scfg, temperature=0.8), "cpu")
+
+
 def test_mlstm_bound_counts_the_served_calls():
     """The serving shapes of xlstm-125m: the prefill is bound by the
     recurrence's operations (2.4 GFLOP, 44 MB) at the 3xTF32 rate the
@@ -253,6 +382,29 @@ def test_layer_parity_holds_jamba(monkeypatch):
 
 def test_layer_parity_holds_the_bf16_jamba(monkeypatch):
     hold_smoke_jamba(monkeypatch, torch.bfloat16, chip_smoke.TOL["bfloat16"])
+
+
+def test_layer_parity_holds_qwen3_moe(monkeypatch):
+    """Phase 21's check on the smoke qwen3-moe (qk-norm, an MoE on every
+    layer): it passes, and a wrong attention on the kernel path fails it."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_model, smoke
+
+    model = init_model(smoke(get_config("qwen3-moe-235b-a22b")), 0,
+                       device="cpu")
+    prompts = torch.randint(0, 512, (2, 12),
+                            generator=torch.Generator().manual_seed(0))
+    worst = chip_smoke.layer_parity("qwen3-moe smoke", model, prompts)
+    assert 0.0 <= worst["mixer_rel"] <= chip_smoke.MODEL_TOL
+    real = ops.attention
+
+    def hot(q, k, v, **kw):
+        return real(q * 1.05, k, v, **kw)
+
+    monkeypatch.setattr(ops, "attention", hot)
+    with pytest.raises(RuntimeError, match="check failed"):
+        chip_smoke.layer_parity("qwen3-moe smoke", model, prompts)
 
 
 # ---------------------------------------------------------------------------

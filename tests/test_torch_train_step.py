@@ -55,11 +55,22 @@ LR, WD, WARMUP = 1e-3, 0.01, 2          # the trainer's AdamW and warm-up
 
 
 def batch(cfg, seed=0, B=2, S=16):
-    toks = np.random.RandomState(seed).randint(
-        0, cfg.vocab_size, (B, S)).astype(np.int32)
+    """A training batch with the keys of ``cfg.input_mode``: tokens; frame
+    embeddings; or patch embeddings (a quarter of the sequence, none at
+    S = 1, as ``batch_specs`` splits it) before tokens.  Labels span the
+    sequence."""
+    rng = np.random.RandomState(seed)
+    toks = rng.randint(0, cfg.vocab_size, (B, S)).astype(np.int32)
     labels = toks.copy()
     labels[1, :3] = -1                                  # masked labels
-    return {"tokens": toks, "labels": labels}
+    if cfg.input_mode == "tokens":
+        return {"tokens": toks, "labels": labels}
+    if cfg.input_mode == "embeds":
+        return {"frame_embeds": rng.randn(B, S, cfg.d_model).astype(
+            np.float32), "labels": labels}
+    n_patch = max(1, int(S * cfg.patch_frac)) if S > 1 else 0
+    return {"patch_embeds": rng.randn(B, n_patch, cfg.d_model).astype(
+        np.float32), "tokens": toks[:, n_patch:], "labels": labels}
 
 
 def worst_leaf(got, want):
