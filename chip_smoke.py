@@ -9,13 +9,14 @@ Phases, each of which must pass (any failure exits non-zero):
      nvcc per source, started together); every entry function's
      registers, spills (none allowed) and shared memory, the HGMMA
      instructions of both products of the bf16 ``flash_attention`` at
-     every head dim (16 to 256) and the TF32 HMMA of the ``mlstm_scan``
-     prefill in their SASS;
+     every head dim (16 to 256, 112 included) and the TF32 HMMA of the
+     ``mlstm_scan`` prefill in their SASS;
   3. hold each kernel against its plain PyTorch version on the card, fp32
-     and bf16, over the repo's sweeps (with head-dim-256, GQA-16 and
-     24-head MHA cases) and the serving paths' own shapes, gemma2's at
-     head dim 256, qwen2-vl's (g 8) and qwen3-moe's (g 16) at head dim 128
-     and musicgen's MHA included (``mlstm_scan``: y, C and the normalizer
+     and bf16, over the repo's sweeps (with head-dim-256, GQA-16, 24-head
+     MHA and head-dim-112 cases) and the serving paths' own shapes,
+     gemma2's at head dim 256, qwen2-vl's (g 8) and qwen3-moe's (g 16) at
+     head dim 128, musicgen's MHA and kimi-k2's (64/8 heads at head dim
+     112, ragged kv_len) included (``mlstm_scan``: y, C and the normalizer
      n);
   4. full-width llama3.2-1b (16 layers) in fp32: the kernel path against
      the plain path on the prefill logits, 8 decode steps and the greedy
@@ -53,10 +54,12 @@ Phases, each of which must pass (any failure exits non-zero):
  12. one ``flash_attention`` and one ``flash_decode`` call under
      torch.profiler, each exactly one device kernel, and each scan call
      (one kernel; two for the ``mlstm_scan`` prefill: scores, then the
-     scan); each kernel's time (events and profiler), bound, plain and
+     scan; how often a trace of that prefill comes up short, with and
+     without the spin kernel that opens the window, is logged); each
+     kernel's time (events and profiler), bound, plain and
      library times at the serving shapes (the attention kernels at head
      dims 64, 128 and gemma2's 256, and at the shapes of qwen2-vl,
-     qwen3-moe and musicgen), beside the timing method's floor;
+     qwen3-moe, musicgen and kimi-k2), beside the timing method's floor;
  13. full-width gemma2-2b (26 layers, 13 of them local with window 4,096,
      head dim 256, softcaps 50 and 30) in fp32: the kernel path against
      the plain path as in phase 4, on one 4,352-token prompt;
@@ -83,9 +86,21 @@ Phases, each of which must pass (any failure exits non-zero):
  21. full-width qwen3-moe-235b-a22b cut to 4 of its 94 layers in fp32
      (44.8 GB): as in phase 9, with the expert choices that differ
      counted;
+ 22. full-width kimi-k2-1t-a32b cut to 1 of its 61 layers in fp32
+     (77.7 GB: 384 experts top-8 and a shared expert, attention at head
+     dim 112): as in phase 21, and the peak device memory;
+ 23. serve kimi-k2-1t-a32b cut to 2 layers in bf16 (73.0 GB) as in phase
+     10: 2 ``flash_attention`` launches in the prefill and 2
+     ``flash_decode`` launches a decode step, the layers held as in phase
+     22, decode ms a token beside the weights' floor (the single-shard
+     MoE reads all 384 experts' weights every step), and a profiled
+     wave's device-busy ms and idle share as in phase 18;
 then one ``{"kernels": [...]}`` line, whose launches are those of every
-served path's counted wave (phases 5, 8, 10, 14, 18, 20) and of the
-training runs (phase 11).
+served path's counted wave (phases 5, 8, 10, 14, 18, 20, 23) and of the
+training runs (phase 11).  The expert-parallel MoE (``moe.
+_moe_expert_parallel``) does not run here: NCCL puts one rank on a card,
+and the script needs one card; tests/test_torch_moe_ep.py holds it on four
+CPU ranks.
 The last line is ``{"ok": true, "device": {...}}``.  Without a card, or
 outside a checkout, the script exits non-zero and prints no result.
 """
@@ -113,7 +128,8 @@ TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 # cases by index).  Head dim 256 is gemma2's and gemma3's: GQA g = 2, the
 # window, gemma2's softcap 50, ragged lengths.  Then qwen3-moe's GQA group
 # of 16 at head dim 128 (in decode g·hd = 2,048, flash_decode's
-# MAX_GROUP_HD) and musicgen's MHA over 24 heads at head dim 64.
+# MAX_GROUP_HD) and musicgen's MHA over 24 heads at head dim 64; then
+# kimi-k2's head dim 112 with its GQA group of 8.
 ATTN_SWEEP = [
     # (B, Hq, Hkv, Sq, Skv, hd, causal, window, softcap)
     (1, 2, 2, 64, 64, 32, True, 0, 0.0),      # MHA causal
@@ -129,6 +145,9 @@ ATTN_SWEEP = [
     (1, 2, 1, 64, 100, 256, False, 0, 50.0),  # head dim 256, non-causal
     (2, 32, 2, 100, 100, 128, True, 0, 30.0),  # g 16, hd 128, ragged
     (1, 24, 24, 130, 130, 64, True, 0, 0.0),   # MHA over 24 heads, ragged
+    (2, 16, 2, 130, 130, 112, True, 0, 0.0),   # kimi: g 8, hd 112, ragged
+    (1, 8, 1, 96, 160, 112, True, 48, 30.0),   # hd 112, g 8, all at once
+    (1, 4, 2, 70, 100, 112, False, 0, 0.0),    # hd 112, non-causal
 ]
 DECODE_SWEEP = [
     # (B, Hq, Hkv, T, hd, kv_len, softcap)
@@ -144,6 +163,8 @@ DECODE_SWEEP = [
     (1, 2, 1, 96, 256, 70, 0.0),     # head dim 256, g 2, one KV head
     (2, 32, 2, 300, 128, 233, 30.0),  # g 16, hd 128: g·hd at the cap
     (2, 24, 24, 160, 64, 97, 0.0),   # MHA over 24 heads, ragged
+    (2, 16, 2, 300, 112, 233, 0.0),  # kimi: g 8, hd 112, ragged
+    (1, 8, 1, 96, 112, 70, 30.0),    # hd 112, g 8, one KV head, softcap
 ]
 MLSTM_SWEEP = [                      # tests/test_kernels.py:157-162
     # (B, S, H, hd, chunk)
@@ -199,6 +220,12 @@ QWEN2VL, MUSICGEN, QWEN3MOE = ("qwen2-vl-72b", "musicgen-medium",
                                "qwen3-moe-235b-a22b")
 QWEN2VL_FP32_LAYERS, QWEN2VL_SERVE_LAYERS, QWEN3MOE_FP32_LAYERS = 12, 32, 4
 STUB_SEED = 0
+# kimi-k2-1t-a32b at full width: 17.07 G parameters a layer (384 experts of
+# 3 x 7,168 x 2,048 are 16.91 G of them) and 2.35 G in the untied embedding
+# and head, so 1 of its 61 layers in fp32 (77.7 GB) and 2 in bf16 for
+# serving (73.0 GB).
+KIMI = "kimi-k2-1t-a32b"
+KIMI_FP32_LAYERS, KIMI_SERVE_LAYERS = 1, 2
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -381,6 +408,35 @@ def decode_floor(cfg, batch, kv_len, itemsize=2):
     weights = itemsize * n
     cache = itemsize * n_attn * 2 * batch * kv_len * cfg.n_kv_heads * cfg.hd
     return (weights + cache) / HBM_BYTES_PER_S * 1e3, weights, cache
+
+
+def expert_floors(cfg, batch=BATCH, itemsize=2):
+    """The weights' part of an MoE model's decode floor, two ways:
+    {"every_bytes": a step's weights as ``decode_floor`` counts them, every
+    expert included, as the single-shard MoE reads them (three batched
+    products over all experts, as the JAX package's einsums); "picked_bytes":
+    the same with only the at most ``batch`` x k experts a step picks in
+    each MoE layer; "picked": that count; and both over 3.35 TB/s in ms}."""
+    from repro_torch.models import layer_is_moe
+    _, every, _ = decode_floor(cfg, batch, PROMPT + NEW // 2, itemsize)
+    n_moe = sum(layer_is_moe(cfg, li) for li in range(cfg.n_layers))
+    expert_bytes = itemsize * 3 * cfg.d_model * cfg.expert_d_ff
+    picked = min(cfg.n_experts, batch * cfg.experts_per_token)
+    unread = n_moe * (cfg.n_experts - picked) * expert_bytes
+    return {"every_bytes": every, "every_ms": every / HBM_BYTES_PER_S * 1e3,
+            "picked": picked, "picked_bytes": every - unread,
+            "picked_ms": (every - unread) / HBM_BYTES_PER_S * 1e3}
+
+
+def expert_floors_text(cfg) -> str:
+    """``expert_floors`` of a served MoE model as a log line's text."""
+    f = expert_floors(cfg)
+    return (f"decode floor per token (bf16 weights / 3.35 TB/s): every "
+            f"expert read {f['every_ms']:.2f} ms "
+            f"({f['every_bytes'] / 1e9:.1f} GB), as the single-shard MoE "
+            f"reads them; only the <= {f['picked']} picked of "
+            f"{cfg.n_experts} experts per MoE layer {f['picked_ms']:.2f} ms "
+            f"({f['picked_bytes'] / 1e9:.1f} GB)")
 
 
 # ---------------------------------------------------------------------------
@@ -872,7 +928,7 @@ def run(torch) -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.launch.serve import ServeConfig
-    from repro_torch.models import init_model, layer_is_moe
+    from repro_torch.models import init_model
     from repro_torch.serve import (AdmissionConfig, ContinuousBatcher,
                                    KernelDecode, StepRequest)
 
@@ -917,7 +973,9 @@ def run(torch) -> int:
                        f"{decode_attention.smem_bytes(2, 256, item)} B at "
                        f"g 2, hd 256, "
                        f"{decode_attention.smem_bytes(16, 128, item)} B at "
-                       f"g 16, hd 128")
+                       f"g 16, hd 128, "
+                       f"{decode_attention.smem_bytes(8, 112, item)} B at "
+                       f"g 8, hd 112")
             elif name == "mlstm_scan" and "scan_kernel" in fn and param:
                 et = int(param.group(1))
                 dyn = (f", {mlstm_scan.scan_smem_bytes(MLSTM_HD, et)} B "
@@ -962,12 +1020,12 @@ def run(torch) -> int:
             "flash_decode_hd128": {}, "flash_attention_hd256": {},
             "flash_decode_hd256": {}, "mamba_scan": {},
             "mamba_scan_state": {}}
-    # The attention shapes of the stub-mode and MoE models (phases 17-21):
+    # The attention shapes of the stub-mode and MoE models (phases 17-23):
     # {tag: (Hq, Hkv, hd)}, qwen2-vl g 8 and qwen3-moe g 16 at hd 128,
-    # musicgen MHA at hd 64.
-    stub_shapes = {name: (c.n_heads, c.n_kv_heads, c.hd) for name, c in (
-        (n, get_config(n)) for n in (QWEN2VL, QWEN3MOE, MUSICGEN))}
-    for name in stub_shapes:
+    # musicgen MHA at hd 64, kimi-k2 g 8 at hd 112.
+    model_shapes = {name: (c.n_heads, c.n_kv_heads, c.hd) for name, c in (
+        (n, get_config(n)) for n in (QWEN2VL, QWEN3MOE, MUSICGEN, KIMI))}
+    for name in model_shapes:
         errs[f"flash_attention {name}"] = {}
         errs[f"flash_decode {name}"] = {}
 
@@ -1061,17 +1119,21 @@ def run(torch) -> int:
             hold("flash_attention", ops.flash_attention(q, k, v, **kw),
                  ref.attention_ref(q, k, v, **kw), dtype, str(kw))
             n_checks += 1
-        # The same at head dim 256 (g = 2), in the model's layouts.
-        q = randn(16, (1, 80, 4, 256), dtype).transpose(1, 2)
-        k = randn(17, (1, 256, 2, 256), dtype).transpose(1, 2)
-        v = randn(18, (1, 256, 2, 256), dtype).transpose(1, 2)
-        for kw in (dict(causal=True, q_offset=100, kv_len=170),
-                   dict(causal=False, q_offset=100, kv_len=170),
-                   dict(causal=True, window=40, softcap=50.0, q_offset=100,
-                        kv_len=170)):
-            hold("flash_attention", ops.flash_attention(q, k, v, **kw),
-                 ref.attention_ref(q, k, v, **kw), dtype, f"hd 256 {kw}")
-            n_checks += 1
+        # The same at head dims 256 (g = 2) and 112 (kimi-k2's g = 8), in
+        # the model's layouts: 80 ragged queries at an offset, kv_len past
+        # the causal limit of some rows, a window.
+        for hd, hq, seed in ((256, 4, 16), (112, 16, 19)):
+            q = randn(seed, (1, 80, hq, hd), dtype).transpose(1, 2)
+            k = randn(seed + 1, (1, 256, 2, hd), dtype).transpose(1, 2)
+            v = randn(seed + 2, (1, 256, 2, hd), dtype).transpose(1, 2)
+            for kw in (dict(causal=True, q_offset=100, kv_len=170),
+                       dict(causal=False, q_offset=100, kv_len=170),
+                       dict(causal=True, window=40, softcap=50.0,
+                            q_offset=100, kv_len=170)):
+                hold("flash_attention", ops.flash_attention(q, k, v, **kw),
+                     ref.attention_ref(q, k, v, **kw), dtype,
+                     f"hd {hd} {kw}")
+                n_checks += 1
         for case in DECODE_SWEEP:
             B, Hq, Hkv, T, hd, kv_len, cap = case
             q = randn(7, (B, Hq, 1, hd), dtype)
@@ -1176,9 +1238,10 @@ def run(torch) -> int:
                  dtype, f"decode (4,{G_HQ},1,256)/(4,{G_HKV},512,256) "
                  f"kv_len={kv_len}", main_shape=True)
         n_checks += 1 + len(DECODE_KV_LENS)
-        # qwen2-vl's, qwen3-moe's and musicgen's attention as served: the
-        # prefill and decode steps against a (4,Hkv,512,hd) cache.
-        for si, (name, (hq, hkv, hd)) in enumerate(stub_shapes.items()):
+        # qwen2-vl's, qwen3-moe's, musicgen's and kimi-k2's attention as
+        # served: the prefill and decode steps against a (4,Hkv,512,hd)
+        # cache.
+        for si, (name, (hq, hkv, hd)) in enumerate(model_shapes.items()):
             seed = 200 + 10 * si
             q = randn(seed, (BATCH, PROMPT, hq, hd), dtype).transpose(1, 2)
             k = randn(seed + 1, (BATCH, PROMPT, hkv, hd), dtype).transpose(
@@ -1506,22 +1569,7 @@ def run(torch) -> int:
         jcfg2, jprompts, wave_launches(jcfg2),
         lambda model, batch, _: {"bf16_layer_parity": layer_parity(
             JAMBA, model, batch["tokens"], tol=TOL["bfloat16"])})
-    # The decode floor: a step reads every weight once (of the untied
-    # embedding table only its 4 rows, so ``decode_floor`` leaves it out),
-    # and with the expert products as they stand (three batched products
-    # over all experts) every expert; reading only the picked experts (at
-    # most BATCH * k of them per MoE layer) would lower it.
-    _, param_bytes, _ = decode_floor(jcfg2, BATCH, PROMPT + NEW // 2)
-    n_moe = sum(layer_is_moe(jcfg2, li) for li in range(jcfg2.n_layers))
-    expert_bytes = 2 * 3 * jcfg2.d_model * jcfg2.expert_d_ff
-    picked = min(jcfg2.n_experts, BATCH * jcfg2.experts_per_token)
-    unread = n_moe * (jcfg2.n_experts - picked) * expert_bytes
-    log(f"[jamba] decode floor per token (bf16 weights / 3.35 TB/s): every "
-        f"expert read {param_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms "
-        f"({param_bytes / 1e9:.1f} GB); only the <= {picked} picked of "
-        f"{jcfg2.n_experts} experts per MoE layer "
-        f"{(param_bytes - unread) / HBM_BYTES_PER_S * 1e3:.2f} ms "
-        f"({(param_bytes - unread) / 1e9:.1f} GB); Jamba phases "
+    log(f"[jamba] {expert_floors_text(jcfg2)}; Jamba phases "
         f"{time.perf_counter() - t_jamba:.1f} s")
     del model
     torch.cuda.empty_cache()
@@ -1607,18 +1655,30 @@ def run(torch) -> int:
                XLSTM: xlstm_launches,
                jcfg2.name: jamba_launches}
 
-    def device_kernels(fn):
+    def device_kernels(fn, spin=True):
         """Names of the device activities (kernels, memsets, copies) of one
-        call of ``fn``, after a warm-up call, from torch.profiler."""
+        call of ``fn``, after a warm-up call, from torch.profiler.  With
+        ``spin`` the traced window opens with a spin kernel, finished before
+        the call, and only the activities after it are the call's: one
+        trace (torch 2.11 with CUDA 12.8) reported one of an ``mlstm_scan``
+        prefill's two kernels, and a lost first activity of the window is
+        the guess that the spin guards against (``trace_loss_probe``)."""
         from torch.profiler import ProfilerActivity, profile
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            if spin:
+                torch.cuda._sleep(1000)
+                torch.cuda.synchronize()
             fn()
             torch.cuda.synchronize()
-        return [e.name for e in prof.events()
+        acts = [e for e in prof.events()
                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        spins = [e.time_range.end for e in acts if "spin_kernel" in e.name]
+        after = max(spins, default=float("-inf"))
+        return [e.name for e in acts if "spin_kernel" not in e.name
+                and e.time_range.start >= after]
 
     def profiled_ms(fn, names, calls=20):
         """Mean device ms of one call of ``fn`` by torch.profiler: the
@@ -1634,6 +1694,17 @@ def run(torch) -> int:
                  if e.device_type == torch.autograd.DeviceType.CUDA
                  and e.name in names)
         return us / calls / 1e3
+
+    def trace_loss_probe(fn, want_kernels, what, traces=10):
+        """How often one traced call of ``fn`` reports fewer than
+        ``want_kernels`` device activities, over ``traces`` traces without
+        the spin kernel and ``traces`` with it (logged, not checked)."""
+        short = {spin: sum(len(device_kernels(fn, spin)) < want_kernels
+                           for _ in range(traces))
+                 for spin in (False, True)}
+        log(f"[profile] {what}: traces short of {want_kernels} activities: "
+            f"{short[False]} of {traces} without the spin kernel, "
+            f"{short[True]} of {traces} with it")
 
     def scan_call(fn, want_kernels, what):
         """Event ms, profiler ms and device kernels of one scan call; the
@@ -1660,10 +1731,10 @@ def run(torch) -> int:
 
     llama_t, jamba_t = attention_times(64, 20), attention_times(JHD, 140)
     gemma_t = attention_times(256, 190, G_HQ, G_HKV)
-    stub_t = {}
-    for si, (name, (hq, hkv, hd)) in enumerate(stub_shapes.items()):
-        stub_t[name] = attention_times(hd, 260 + 10 * si, hq, hkv)
-        for kname, t in stub_t[name].items():
+    model_t = {}
+    for si, (name, (hq, hkv, hd)) in enumerate(model_shapes.items()):
+        model_t[name] = attention_times(hd, 260 + 10 * si, hq, hkv)
+        for kname, t in model_t[name].items():
             log(f"[timing] {kname} {name}, {t['shape']}: {t['ms']:.5f} ms, "
                 f"bound {t['bound'][0]:.5f} ms ({t['bound'][1]}), plain "
                 f"{t['plain_ms']:.5f} ms, SDPA {t['library_ms']:.5f} ms")
@@ -1700,7 +1771,7 @@ def run(torch) -> int:
             "hd256_max_abs_err": errs[f"{name}_hd256"]["bfloat16"],
             "hd256_max_abs_err_fp32": errs[f"{name}_hd256"]["float32"],
             # The stub-mode and MoE models' shapes, keyed by model.
-            **{f"{arch}_{key}": value for arch, ts in stub_t.items()
+            **{f"{arch}_{key}": value for arch, ts in model_t.items()
                for key, value in (
                    ("ms", ts[name]["ms"]),
                    ("plain_ms", ts[name]["plain_ms"]),
@@ -1730,6 +1801,8 @@ def run(torch) -> int:
     n_step = randn(86, (BATCH, H, hd), "float32") * 0.1
     ml_pre = mlstm_bound(BATCH, PROMPT, H, hd)
     ml_step = mlstm_bound(BATCH, 1, H, hd)
+    trace_loss_probe(lambda: ops.mlstm(*pre, c_pre, n0=n_pre), 2,
+                     "mlstm_scan prefill")
     pre_ms, pre_prof, pre_k = scan_call(
         lambda: ops.mlstm(*pre, c_pre, n0=n_pre), 2, "mlstm_scan prefill")
     step_ms, step_prof, step_k = scan_call(
@@ -1867,6 +1940,34 @@ def run(torch) -> int:
     fp32_phase(dataclasses.replace(qcfg, n_layers=QWEN3MOE_FP32_LAYERS),  # 21
                layerwise=True, seed=STUB_SEED)
     log(f"[stub] phases 17-21 {time.perf_counter() - t_stub:.1f} s")
+
+    # -- 22./23. kimi-k2-1t-a32b at full width, cut in depth ------------------
+    # Every width as published (attention at 64/8 heads of head dim 112, 384
+    # experts top-8 and a shared expert); the depth cut so the weights fit
+    # the card (KIMI_*_LAYERS).  The expert-parallel MoE does not run here:
+    # it needs one rank a card, and this machine has one card
+    # (tests/test_torch_moe_ep.py holds it on CPU ranks).
+    t_kimi = time.perf_counter()
+    kcfg = get_config(KIMI)
+    log(f"[kimi-k2] depth cut: {kcfg.n_layers} -> {KIMI_FP32_LAYERS} layer "
+        f"in fp32, {KIMI_SERVE_LAYERS} in bf16; widths as published "
+        f"(d_model {kcfg.d_model}, {kcfg.n_experts} experts top-"
+        f"{kcfg.experts_per_token} of d_ff {kcfg.expert_d_ff} and "
+        f"{kcfg.n_shared_experts} shared, {kcfg.n_heads}/{kcfg.n_kv_heads} "
+        f"heads of {kcfg.hd}, vocab {kcfg.vocab_size})")
+    fp32_phase(dataclasses.replace(kcfg, n_layers=KIMI_FP32_LAYERS),   # 22
+               layerwise=True, seed=STUB_SEED)
+    kcfg2 = dataclasses.replace(kcfg, n_layers=KIMI_SERVE_LAYERS)
+    model, by_path[kcfg2.name] = serve_phase(                          # 23
+        kcfg2, prompt_batch(kcfg2, BATCH, PROMPT, dev, STUB_SEED),
+        wave_launches(kcfg2),
+        lambda model, batch, _: {"bf16_layer_parity": layer_parity(
+            KIMI, model, batch["tokens"], tol=TOL["bfloat16"])},
+        profile=True)
+    log(f"[kimi-k2] {expert_floors_text(kcfg2)}; phases 22-23 "
+        f"{time.perf_counter() - t_kimi:.1f} s")
+    del model
+    free_memory()
 
     for entry in kernels:
         per = {path: c[entry["name"]] for path, c in by_path.items()}

@@ -1,8 +1,7 @@
 """Architecture registry of the port: ``get_config(arch_id)``.
 
 Each module defines ``CONFIG`` with the published numbers.  The port carries
-the configs whose block kinds it runs: every one of the JAX package's but
-kimi-k2, whose head dim 112 the attention kernels do not take yet.
+every one of the JAX package's ten configs.
 """
 from __future__ import annotations
 
@@ -14,7 +13,7 @@ from ..models.config import ModelConfig
 ARCH_IDS: List[str] = ["llama3_2_1b", "xlstm_125m", "jamba_v0_1_52b",
                         "gemma2_2b", "gemma3_4b", "minicpm_2b",
                         "qwen2_vl_72b", "musicgen_medium",
-                        "qwen3_moe_235b_a22b"]
+                        "qwen3_moe_235b_a22b", "kimi_k2_1t_a32b"]
 
 # CLI ids use dashes / dots; module names use underscores.
 ALIASES = {"llama3.2-1b": "llama3_2_1b", "xlstm-125m": "xlstm_125m",
@@ -22,7 +21,8 @@ ALIASES = {"llama3.2-1b": "llama3_2_1b", "xlstm-125m": "xlstm_125m",
            "gemma3-4b": "gemma3_4b", "minicpm-2b": "minicpm_2b",
            "qwen2-vl-72b": "qwen2_vl_72b",
            "musicgen-medium": "musicgen_medium",
-           "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b"}
+           "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+           "kimi-k2-1t-a32b": "kimi_k2_1t_a32b"}
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -10,7 +10,9 @@ that layer's ``ParamTree``, at any depth.
 
 ``params_from_numpy`` loads such a flat dict into a new ``LM``;
 ``numpy_from_params`` goes back (``ckpt.shards`` does the same for the
-whole training state, the AdamW moments included).  bf16
+whole training state, the AdamW moments included).  ``expert_block`` cuts
+one MoE layer's expert weights to what one rank of the expert-parallel MoE
+holds.  bf16
 leaves travel as numpy's 2-byte void dtype (``V2``), the bytes that
 ``np.savez`` writes for the JAX package's bf16 leaves.
 
@@ -26,6 +28,7 @@ import torch
 from .device import resolve
 from .models.config import ModelConfig
 from .models.lm import LM
+from .models.moe import EXPERT_LEAVES
 
 
 def to_tensor(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
@@ -126,3 +129,19 @@ def params_from_numpy(cfg: ModelConfig, flat: Mapping[str, np.ndarray], *,
         for param, arr in targets.values():
             param.copy_(to_tensor(arr, param))
     return model
+
+
+def expert_block(leaves: Mapping[str, torch.Tensor], rank: int,
+                 ep: int) -> Dict[str, torch.Tensor]:
+    """One MoE layer's leaves as rank ``rank`` of ``ep`` expert-parallel
+    ranks holds them: ``w_gate``, ``w_up`` and ``w_down`` cut to experts
+    rank·E/ep .. (rank+1)·E/ep - 1 (copies, so the rest can be freed), as
+    the JAX package's ``P("model")`` places the expert axis; the router and
+    the shared expert (``ws_*``) whole."""
+    e = leaves["w_gate"].shape[0]
+    if not 0 <= rank < ep or e % ep:
+        raise ValueError(f"rank {rank} of {ep} cannot hold E/ep of {e} "
+                         f"experts")
+    lo, n = rank * (e // ep), e // ep
+    return {name: t[lo:lo + n].clone() if name in EXPERT_LEAVES else t
+            for name, t in leaves.items()}

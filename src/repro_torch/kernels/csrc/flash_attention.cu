@@ -37,9 +37,16 @@
 //     O is 64 x 256 fp32, 128 registers a thread, and P.V runs as two
 //     m64n128k16 wgmmas a 16-key slice, each on its own half of O and of
 //     V's columns, so no 128-register instruction form is needed.
+//   * Head dim 112 (kimi-k2): a 224-byte row is not a whole number of
+//     128-byte column blocks, so the tiles are laid out at the padded width
+//     of 128 (tile_width): the copies zero-fill each row's 16-byte chunks
+//     14 and 15, Q.K^T runs over the 7 real 16-dim k-slices, P.V at n = 128
+//     (the zero V columns give zero output columns, which are not stored).
+//     Shared memory is that of hd 128, 50,176 bytes; P.V does 128/112 of
+//     the work a tight layout would (QK^T none extra).
 //   * Tiles sit in shared memory in wgmma's canonical layout: column blocks
-//     of 32/64/128 bytes a row (hd 16/32/64; hd 128 and 256 are two and four
-//     128-byte blocks),
+//     of 32/64/128 bytes a row (hd 16/32/64; hd 112 and 128 are two and 256
+//     four 128-byte blocks),
 //     16-byte chunks XOR-swizzled by the row within each 8-row atom, the
 //     descriptor's layout type matching the swizzle the copies wrote.
 //   * S = Q.K^T is wgmma m64n32k16 with both operands in shared memory (K's
@@ -61,13 +68,15 @@
 //     32 and 64 one thread owns one query row, holding its scaled q, its
 //     fp32 accumulator and the row's running max and sum in registers.  A
 //     wider head would not fit in 255 registers (q and acc alone are 2 hd
-//     floats), so from hd 128 a row is split over LANES = hd / 32
-//     neighbouring lanes of a warp: each lane holds 32 dims of q and of
-//     the accumulator (dims sub, sub + LANES, ..., so the lanes of a row
-//     read neighbouring shared-memory words), a score is summed over the
-//     lanes with __shfl_xor_sync, and the butterfly leaves the same sum,
-//     hence the same running max and sum, on every lane of the row.  hd
-//     128 runs 4 lanes a row, 256 threads a block; hd 256 runs 8 lanes a
+//     floats), so from hd 112 a row is split over LANES neighbouring lanes
+//     of a warp (lanes_per_row: a power of two that divides hd, so that the
+//     butterfly below stays within the row): each lane holds hd / LANES
+//     dims of q and of the accumulator (dims sub, sub + LANES, ..., so the
+//     lanes of a row read neighbouring shared-memory words), a score is
+//     summed over the lanes with __shfl_xor_sync, and the butterfly leaves
+//     the same sum, hence the same running max and sum, on every lane of
+//     the row.  hd 112 and 128 run 4 lanes a row (28 and 32 dims a lane),
+//     256 threads a block; hd 256 runs 8 lanes a
 //     row, 512 threads a block, on 16-key tiles: 32-key fp32 tiles of K and
 //     V would be 64 KiB, over the 48 KiB of static shared memory, and a
 //     thread of a 512-thread block holds at most 128 registers (q, acc and
@@ -209,10 +218,19 @@ __global__ void __launch_bounds__(BQ * LANES) attn_kernel(AttnArgs a) {
   }
 }
 
+// Lanes that share one query row of the fp32 kernel: the row's scores are
+// summed by a butterfly over them, so they must be a power of two that
+// divides the head dim.
+constexpr int lanes_per_row(int hd) {
+  return hd <= 64 ? 1 : hd == 112 ? 4 : hd / 32;
+}
+
 template <typename T, int HD>
 int launch_hd(const AttnArgs& a, int B, int Hq, cudaStream_t stream) {
   constexpr int BK = HD <= 128 ? 32 : 16;          // keys per tile
-  constexpr int LANES = HD <= 64 ? 1 : HD / 32;   // lanes per query row
+  constexpr int LANES = lanes_per_row(HD);
+  static_assert(HD % LANES == 0 && (LANES & (LANES - 1)) == 0,
+                "LANES must be a power of two that divides the head dim");
   const dim3 grid((a.Sq + BQ - 1) / BQ, Hq, B);
   attn_kernel<T, HD, BK, LANES><<<grid, BQ * LANES, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
@@ -224,6 +242,7 @@ int launch(const AttnArgs& a, int B, int Hq, int hd, cudaStream_t stream) {
     case 16: return launch_hd<T, 16>(a, B, Hq, stream);
     case 32: return launch_hd<T, 32>(a, B, Hq, stream);
     case 64: return launch_hd<T, 64>(a, B, Hq, stream);
+    case 112: return launch_hd<T, 112>(a, B, Hq, stream);
     case 128: return launch_hd<T, 128>(a, B, Hq, stream);
     case 256: return launch_hd<T, 256>(a, B, Hq, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -301,23 +320,32 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// Width of a tile row in bf16 values: the head dim, rounded up past 64 to
+// whole 128-byte column blocks (hd 112 -> 128); the padding is zeros.
+constexpr int tile_width(int hd) {
+  return hd <= 64 ? hd : (hd + 63) / 64 * 64;
+}
+
 // A tile of ROWS rows of HD bf16 values in shared memory, laid out as wgmma
-// reads it: column blocks of ROWB bytes a row (the swizzle width), each
-// block ROWS rows x ROWB bytes with the rows packed, and within each 8-row
-// atom the 16-byte chunks of row r XOR-ed with r mod 8 (128 B), (r/2) mod 4
-// (64 B) or (r/4) mod 2 (32 B), which is the hardware's swizzle of address
-// bits 4-6 by bits 7-9.  Tile and block bases are 1024-byte aligned, so
-// the swizzle of an offset is the swizzle of the address.
+// reads it: rows of HP = tile_width(HD) values, in column blocks of ROWB
+// bytes a row (the swizzle width), each block ROWS rows x ROWB bytes with
+// the rows packed, and within each 8-row atom the 16-byte chunks of row r
+// XOR-ed with r mod 8 (128 B), (r/2) mod 4 (64 B) or (r/4) mod 2 (32 B),
+// which is the hardware's swizzle of address bits 4-6 by bits 7-9.  Tile
+// and block bases are 1024-byte aligned, so the swizzle of an offset is
+// the swizzle of the address.
 template <int HD, int ROWS = 64>
 struct TileLayout {
-  static constexpr int ROWB = HD * 2 < 128 ? HD * 2 : 128;
+  static constexpr int HP = tile_width(HD);
+  static constexpr int ROWB = HP * 2 < 128 ? HP * 2 : 128;
   static constexpr int CPB = ROWB / 16;       // 16-byte chunks a block row
   static constexpr int BLOCK = ROWS * ROWB;   // bytes of one column block
-  static constexpr int BYTES = ROWS * HD * 2; // bytes of the tile
+  static constexpr int BYTES = ROWS * HP * 2; // bytes of the tile
+  static_assert(HP * 2 % ROWB == 0, "rows are whole column blocks");
   // Descriptor layout type: 1 = 128 B swizzle, 2 = 64 B, 3 = 32 B.
   static constexpr uint64_t MODE = ROWB == 128 ? 1 : ROWB == 64 ? 2 : 3;
 
-  // Byte offset of 16-byte chunk c (of HD / 8) of row r.
+  // Byte offset of 16-byte chunk c (of HP / 8) of row r.
   __device__ __forceinline__ static uint32_t chunk(int r, int c) {
     const uint32_t o = r * ROWB + (c % CPB) * 16;
     return (c / CPB) * BLOCK + (o ^ (((o >> 7) & (CPB - 1)) << 4));
@@ -352,24 +380,25 @@ __device__ __forceinline__ uint64_t desc_v(uint32_t tile, int kk) {
 }
 
 // Copy rows row0 .. row0 + ROWS - 1 of a (rows, HD) bf16 matrix with the
-// given row stride into a tile; rows at or past `rows` are filled with
-// zeros.
+// given row stride into a tile; rows at or past `rows`, and the padding
+// chunks of each row past HD, are filled with zeros.
 template <int HD, int ROWS = 64>
 __device__ __forceinline__ void load_tile(uint32_t dst,
                                           const __nv_bfloat16* src,
                                           long long row_stride, int row0,
                                           int rows) {
-  constexpr int CPR = HD / 8;                 // 16-byte chunks a row
+  using L = TileLayout<HD, ROWS>;
+  constexpr int CPR = L::HP / 8;              // 16-byte chunks a tile row
   constexpr int CHUNKS = ROWS * CPR;
 #pragma unroll
   for (int u = 0; u < (CHUNKS + WG - 1) / WG; ++u) {
     const int i = u * WG + threadIdx.x;
     if (CHUNKS % WG != 0 && i >= CHUNKS) break;
     const int r = i / CPR, c = i % CPR;
-    const bool ok = row0 + r < rows;
+    const bool ok = row0 + r < rows && (L::HP == HD || c < HD / 8);
     const __nv_bfloat16* g =
         ok ? src + (long long)(row0 + r) * row_stride + c * 8 : src;
-    cp_async16(dst + TileLayout<HD, ROWS>::chunk(r, c), g, ok ? 16 : 0);
+    cp_async16(dst + L::chunk(r, c), g, ok ? 16 : 0);
   }
 }
 
@@ -527,10 +556,10 @@ __global__ void __launch_bounds__(WG) attn_wgmma_kernel(AttnArgs a) {
   const float cap_in = a.softcap > 0.f ? a.scale / a.softcap : 0.f;
   const float cap_out = a.softcap * LOG2E;
   // O fragment in NO parts, one per P.V wgmma of a 16-key slice (n <= 128
-  // each): o[c][4j + e] is column 128 c + 8 j + 2 (lane % 4) + e % 2 of
-  // row r0 (e < 2) or r0 + 8.
-  constexpr int ON = HD / 2 < 64 ? HD / 2 : 64;
-  constexpr int NO = HD / 2 / ON;
+  // each) over the tile's padded width: o[c][4j + e] is column
+  // 128 c + 8 j + 2 (lane % 4) + e % 2 of row r0 (e < 2) or r0 + 8.
+  constexpr int ON = L::HP / 2 < 64 ? L::HP / 2 : 64;
+  constexpr int NO = L::HP / 2 / ON;
   static_assert(NO == 1 || L::ROWB == 128, "O parts are 128 columns");
   float o[NO][ON];
 #pragma unroll
@@ -553,8 +582,9 @@ __global__ void __launch_bounds__(WG) attn_wgmma_kernel(AttnArgs a) {
       cp_async_commit();
     }
 
-    // S = Q K^T: fragment s[4j + e] is row r0 (e < 2) or r0 + 8, key
-    // t0 + 8j + 2 (lane % 4) + e % 2.
+    // S = Q K^T over the HD / 16 k-slices that hold real dims: fragment
+    // s[4j + e] is row r0 (e < 2) or r0 + 8, key t0 + 8j + 2 (lane % 4) +
+    // e % 2.
     float s[BKW / 2];
 #pragma unroll
     for (int i = 0; i < BKW / 2; ++i) s[i] = 0.f;
@@ -670,9 +700,10 @@ __global__ void __launch_bounds__(WG) attn_wgmma_kernel(AttnArgs a) {
 }
 
 // Dynamic shared memory of attn_wgmma_kernel<HD>: the Q tile, two stages of
-// K and V tiles, and 1024 bytes to align the base.
+// K and V tiles, at the tiles' padded width, and 1024 bytes to align the
+// base.
 constexpr int wgmma_smem_bytes(int hd) {
-  return (BQ + 4 * BKW) * hd * 2 + 1024;
+  return (BQ + 4 * BKW) * tile_width(hd) * 2 + 1024;
 }
 
 template <int HD>
@@ -697,6 +728,7 @@ int launch_wgmma(const AttnArgs& a, int B, int Hq, int hd,
     case 16: return launch_wgmma_hd<16>(a, B, Hq, stream);
     case 32: return launch_wgmma_hd<32>(a, B, Hq, stream);
     case 64: return launch_wgmma_hd<64>(a, B, Hq, stream);
+    case 112: return launch_wgmma_hd<112>(a, B, Hq, stream);
     case 128: return launch_wgmma_hd<128>(a, B, Hq, stream);
     case 256: return launch_wgmma_hd<256>(a, B, Hq, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);

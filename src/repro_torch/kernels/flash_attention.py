@@ -21,7 +21,7 @@ import torch
 from . import _build, refuse_grad
 
 NAME = "flash_attention"
-HEAD_DIMS = (16, 32, 64, 128, 256)   # instantiated in the CUDA source
+HEAD_DIMS = (16, 32, 64, 112, 128, 256)   # instantiated in the CUDA source
 DTYPES = (torch.float32, torch.bfloat16)
 
 BLOCK_Q = 64        # query rows per block (one warpgroup in bf16)
@@ -31,11 +31,19 @@ launches = 0        # kernel launches since the last reset (see ops)
 _fn = None
 
 
+def tile_width(hd: int) -> int:
+    """Width of the bf16 kernel's tile rows in values, as the CUDA source's
+    ``tile_width``: past 64, whole 128-byte column blocks (hd 112 is laid
+    out at 128, its last two 16-byte chunks zeros)."""
+    return hd if hd <= 64 else -(-hd // 64) * 64
+
+
 def wgmma_smem_bytes(hd: int) -> int:
     """Dynamic shared memory of the bf16 kernel at head dim ``hd``, as the
     CUDA source's ``wgmma_smem_bytes`` reckons it: the Q tile and two stages
-    of K and V tiles, in bf16, and 1024 bytes to align the swizzled tiles."""
-    return (BLOCK_Q + 4 * BLOCK_KV) * hd * 2 + 1024
+    of K and V tiles, in bf16 at ``tile_width(hd)``, and 1024 bytes to align
+    the swizzled tiles."""
+    return (BLOCK_Q + 4 * BLOCK_KV) * tile_width(hd) * 2 + 1024
 
 
 def _launcher():

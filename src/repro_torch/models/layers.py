@@ -42,19 +42,39 @@ class PSpec:
         return 1.0 / math.sqrt(max(1, fan_in))
 
 
+# A normal leaf of more elements than this is drawn slice by slice along its
+# leading axis.  Only kimi-k2's expert leaves (384 x 7,168 x 2,048 = 5.64 G
+# elements each) are above it; the largest other leaf is qwen2-vl's
+# 1.25 G-element embedding.
+SLICED_DRAW_ELEMENTS = 2 ** 31
+
+
 def init_tensor(spec: PSpec, generator: torch.Generator, *, dtype,
-                device) -> torch.Tensor:
+                device, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One leaf: zeros, ones, or normal·stddev drawn from ``generator``
-    (which must live on ``device``)."""
-    if spec.init == "zeros":
-        return torch.zeros(spec.shape, dtype=dtype, device=device)
-    if spec.init == "ones":
-        return torch.ones(spec.shape, dtype=dtype, device=device)
-    x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
-                    device=device)
-    # In place: the largest leaves (a 1.25 B-row embedding) are drawn next
-    # to a model that already fills most of the card.
-    return x.mul_(spec.stddev()).to(dtype)
+    (which must live on ``device``), written into ``out`` when it is given.
+
+    A normal leaf is drawn in fp32 and then cast, in place: the largest
+    leaves are drawn next to a model that already fills most of the card.
+    An fp32 leaf is drawn where it lies (``normal_`` gives ``randn``'s
+    numbers), any other through an fp32 copy.  A leaf of more than
+    ``SLICED_DRAW_ELEMENTS`` elements is drawn slice by slice along its
+    leading axis (the same distribution, from the same generator), so that
+    no fp32 copy of the whole leaf is held: kimi-k2's expert leaf would be
+    22.5 GB of fp32.  A smaller leaf is drawn whole."""
+    if out is None:
+        out = torch.empty(spec.shape, dtype=dtype, device=device)
+    if spec.init in ("zeros", "ones"):
+        return out.fill_(float(spec.init == "ones"))
+    parts = out.unbind(0) if out.numel() > SLICED_DRAW_ELEMENTS else (out,)
+    for part in parts:
+        if part.dtype == torch.float32:
+            part.normal_(generator=generator).mul_(spec.stddev())
+        else:
+            part.copy_(torch.randn(part.shape, generator=generator,
+                                   dtype=torch.float32,
+                                   device=device).mul_(spec.stddev()))
+    return out
 
 
 # ---------------------------------------------------------------------------

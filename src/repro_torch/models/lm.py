@@ -293,7 +293,7 @@ def init_model(cfg: ModelConfig, seed: int = 0, *, dtype=torch.float32,
     gen.manual_seed(seed)
     with torch.no_grad():
         for param, spec in model.named_specs():
-            param.copy_(init_tensor(spec, gen, dtype=dtype, device=dev))
+            init_tensor(spec, gen, dtype=dtype, device=dev, out=param)
     return model
 
 

@@ -1,16 +1,32 @@
-"""Mixture-of-Experts, single shard (port of ``repro.models.moe``).
+"""Mixture-of-Experts (port of ``repro.models.moe``).
 
 The JAX package's sort-based dispatch, copied: the router's top-k
 assignments are ranked within their expert by a stable sort, scattered into
 per-expert capacity buffers (assignments past an expert's capacity are
 dropped, and the drops are part of the function), run through every
 expert's SwiGLU as three batched products, and combined back with the fp32
-gates.  The result is cast back to the activations' dtype.
+gates.  The result is cast back to the activations' dtype.  Nothing here
+syncs the host: the kept rows are selected by index arithmetic, never by a
+boolean mask.
 
-The JAX package's expert-parallel path (``_moe_shardmap``: all-to-all over
-a mesh) is not ported: ``moe_apply`` always takes the single-shard branch.
-Nothing here syncs the host: the kept rows are selected by index
-arithmetic, never by a boolean mask.
+Two branches, chosen as the JAX package chooses them:
+  * single shard (no rules active, or the experts do not divide over the
+    "expert" axis): every expert on this device, the capacity
+    ``max(k, int(cf·T·k/E))`` from all T tokens;
+  * expert parallel (``_moe_expert_parallel``, the counterpart of
+    ``_moe_shardmap``) when ``launch.sharding`` rules are active, the
+    "expert" axis has ep > 1 ranks and ep divides E: each rank of the
+    ``torch.distributed`` mesh holds its E/ep experts
+    (``convert.expert_block``), routes its shard of the tokens, and two
+    ``all_to_all_single`` over the mesh's "model" group carry the capacity
+    buffers to the experts' ranks and back.  Each shard sizes its capacity
+    from its own token count, so where that count differs from T the
+    capacities, hence the drops and the output, differ from the single
+    shard's.  This copies the reference on purpose: the port's
+    expert-parallel result is held against the JAX package's shard map
+    (tests/test_torch_moe_ep.py), not against the single-shard branch.
+    The all-to-alls are not differentiated: the branch refuses to run with
+    grad (training with expert parallelism is not ported).
 """
 from __future__ import annotations
 
@@ -20,8 +36,11 @@ from typing import Dict, Mapping, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..launch.sharding import Rules, current_rules
 from .config import ModelConfig
 from .layers import PSpec, dense
+
+EXPERT_LEAVES = ("w_gate", "w_up", "w_down")   # sharded over "expert"
 
 
 def moe_specs(cfg: ModelConfig) -> Dict[str, PSpec]:
@@ -107,14 +126,95 @@ def moe_apply(cfg: ModelConfig, params: Mapping[str, torch.Tensor],
               x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (out, aux_loss fp32)."""
     b, s, d = x.shape
+    rules = current_rules()
     xf = x.reshape(b * s, d)
-    gates, ids, aux = _route(cfg, params["router"], xf)
     e, k = cfg.n_experts, cfg.experts_per_token
-    # Capacity from static shapes, as the JAX package computes it.
-    cap = max(k, int(cfg.capacity_factor * (b * s) * k / e))
-    buf, slot, keep = _fill_capacity_buffers(xf, gates, ids, e, cap)
-    out = _combine(_expert_ffn(params, buf), slot, keep, gates, b * s, k)
+    ep = rules.axis_size("expert") if rules else 1
+    expert_parallel = bool(rules) and ep > 1 and e % ep == 0
+    if expert_parallel:
+        _refuse_grad(x, params)
+    gates, ids, aux = _route(cfg, params["router"], xf)
+    if expert_parallel:
+        out = _moe_expert_parallel(cfg, params, xf, gates, ids, rules, ep)
+    else:
+        # Capacity from static shapes, as the JAX package computes it.
+        cap = max(k, int(cfg.capacity_factor * (b * s) * k / e))
+        buf, slot, keep = _fill_capacity_buffers(xf, gates, ids, e, cap)
+        out = _combine(_expert_ffn(params, buf), slot, keep, gates, b * s,
+                       k)
     if cfg.n_shared_experts:
         h = F.silu(dense(xf, params["ws_gate"])) * dense(xf, params["ws_up"])
         out = out + dense(h, params["ws_down"])
     return out.reshape(b, s, d), aux.float()
+
+
+def _refuse_grad(x: torch.Tensor, params: Mapping[str, torch.Tensor]):
+    if torch.is_grad_enabled() and (x.requires_grad or any(
+            params[n].requires_grad for n in ("router",) + EXPERT_LEAVES)):
+        raise ValueError(
+            "the expert-parallel MoE has no backward (its all-to-alls are "
+            "not differentiated): call it under torch.no_grad() or "
+            "torch.inference_mode()")
+
+
+def _moe_expert_parallel(cfg: ModelConfig, params, xf, gates, ids,
+                         rules: Rules, ep: int) -> torch.Tensor:
+    """The JAX package's ``_moe_shardmap`` on ``torch.distributed``.
+
+    Every rank of ``rules.mesh`` is called with the whole batch of T tokens
+    and its routing, as the SPMD program sees them, and holds the E/ep
+    experts of its "model" coordinate m (rows m·E/ep onward, as
+    ``P("model")`` places them).  The tokens are split as the reference
+    splits them: over the batch and expert axes when dp·ep divides T, over
+    the batch axes when dp does, else not at all (each shard then routes
+    the same tokens).  Each rank fills (E, C, D) capacity buffers from its
+    shard, with C from the shard's token count; the first all-to-all sends
+    expert block j to model rank j, the blocks received stacked along the
+    capacity axis in source-rank order, (E/ep, ep·C, D); the local experts
+    run; the second all-to-all is the inverse.  The combined rows are
+    all-gathered over the token axes, so every rank returns all T rows."""
+    import torch.distributed as dist
+    e, k = cfg.n_experts, cfg.experts_per_token
+    el = e // ep
+    if params["w_gate"].shape[0] != el:
+        raise ValueError(f"this rank holds {params['w_gate'].shape[0]} "
+                         f"experts, not E/ep = {el}: cut them with "
+                         f"convert.expert_block")
+    mesh = rules.mesh
+    batch_axes = rules.logical["batch"]
+    model_axes = rules.logical["expert"]
+    t_total, d = xf.shape
+    dp = rules.axis_size("batch")
+    if t_total % (dp * ep) == 0:
+        tok_axes: tuple = tuple(batch_axes) + tuple(model_axes)
+    elif t_total % dp == 0:
+        tok_axes = tuple(batch_axes)
+    else:
+        tok_axes = ()
+    t_local = max(1, t_total // max(
+        1, (dp * ep) if len(tok_axes) > len(batch_axes) else
+        (dp if tok_axes else 1)))
+    cap = max(k, int(cfg.capacity_factor * t_local * k / e))
+    # This rank's token shard: row-major over the token axes.
+    shard = 0
+    for a in tok_axes:
+        shard = shard * rules.sizes[a] + mesh.get_local_rank(a)
+    rows = slice(shard * t_local, (shard + 1) * t_local)
+    gl = gates[rows]
+    buf, slot, keep = _fill_capacity_buffers(xf[rows], gl, ids[rows], e, cap)
+
+    group = mesh.get_group(model_axes[0])
+    recv = torch.empty_like(buf)
+    dist.all_to_all_single(recv, buf, group=group)
+    out = _expert_ffn(params, recv.view(ep, el, cap, d).transpose(0, 1)
+                      .reshape(el, ep * cap, d))
+    send = out.view(el, ep, cap, d).transpose(0, 1).contiguous()
+    back = torch.empty_like(send)
+    dist.all_to_all_single(back, send, group=group)
+    out = _combine(back.view(e, cap, d), slot, keep, gl, t_local, k)
+    # Gather the shards, the fastest token axis first.
+    for a in reversed(tok_axes):
+        parts = [torch.empty_like(out) for _ in range(rules.sizes[a])]
+        dist.all_gather(parts, out, group=mesh.get_group(a))
+        out = torch.cat(parts)
+    return out

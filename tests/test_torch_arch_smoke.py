@@ -1,9 +1,9 @@
 """Per-architecture smoke tests of the port: the torch twin of
 tests/test_arch_smoke.py, on the CPU, with no JAX.
 
-Each architecture the port carries (``repro_torch.configs.ARCH_IDS``; the
-JAX package's kimi-k2 waits for head dim 112) builds its REDUCED
-same-family config and runs, with the batch keys of its input mode:
+Each architecture the port carries (``repro_torch.configs.ARCH_IDS``, all
+ten of the JAX package's) builds its REDUCED same-family config and runs,
+with the batch keys of its input mode:
   * one forward pass (loss finite, logits shaped (B, S, padded_vocab));
   * one SGD step (loss and gradient norm finite, parameters move);
   * a prefill and one decode step.
@@ -53,8 +53,8 @@ def built():
     return get
 
 
-def test_the_port_carries_every_arch_but_kimi_k2():
-    assert len(ARCH_IDS) == 9 and "kimi_k2_1t_a32b" not in ARCH_IDS
+def test_the_port_carries_every_arch():
+    assert len(ARCH_IDS) == 10 and "kimi_k2_1t_a32b" in ARCH_IDS
     assert {get_config(a).input_mode for a in ARCH_IDS} == \
         {"tokens", "embeds", "mixed"}
 

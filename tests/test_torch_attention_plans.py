@@ -61,10 +61,22 @@ def test_flash_attention_smem_fits_every_head_dim():
             assert 4 * 8 * 4 <= per_sm * 132
 
 
+def test_flash_attention_lays_head_dim_112_out_at_128():
+    """A 224-byte bf16 row is not whole 128-byte column blocks: the tiles
+    take the padded width of 128, so the shared memory reckoned is hd
+    128's, 50,176 bytes, and every other head dim keeps its own width."""
+    assert flash_attention.tile_width(112) == 128
+    assert flash_attention.wgmma_smem_bytes(112) == \
+        flash_attention.wgmma_smem_bytes(128) == 50_176
+    for hd in set(flash_attention.HEAD_DIMS) - {112}:
+        assert flash_attention.tile_width(hd) == hd
+        assert flash_attention.tile_width(hd) * 2 % min(hd * 2, 128) == 0
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_decode_smem_fits_every_group(dtype):
     item = torch.finfo(dtype).bits // 8
-    for hd in (16, 32, 64, 128, 256):
+    for hd in (16, 32, 64, 112, 128, 256):
         if hd * item % 16:
             continue
         for g in (1, 2, 4, 8, 16):

@@ -176,6 +176,42 @@ def test_decode_floors_of_the_served_models():
         == pytest.approx(0.74, abs=0.01)
 
 
+def test_kimi_phases_launches_and_expert_floors():
+    """Phase 23: kimi-k2 cut to 2 layers launches flash_attention twice in
+    the prefill and flash_decode twice a decode step; a bf16 step reads
+    all 384 experts' weights in the single-shard MoE (67.7 GB of experts
+    of its 70.6 GB, 21.1 ms), and would read 32 of 384 a layer (2.58 ms) if
+    only the picked experts were read.  Jamba's floors are the ones phase
+    10 logs (15.39 and 8.66 ms)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    kimi = dataclasses.replace(get_config("kimi-k2-1t-a32b"),
+                               n_layers=chip_smoke.KIMI_SERVE_LAYERS)
+    assert chip_smoke.wave_launches(kimi) == {
+        "flash_attention": 2, "flash_decode": 2 * (chip_smoke.NEW - 1),
+        "mlstm_scan": 0, "mamba_scan": 0}
+    f = chip_smoke.expert_floors(kimi)
+    d, ff = 7168, 2048
+    expert = 2 * 3 * d * ff
+    assert f["every_bytes"] == chip_smoke.decode_floor(
+        kimi, 4, chip_smoke.PROMPT + chip_smoke.NEW // 2)[1]
+    assert f["every_bytes"] == 2 * (chip_smoke.spec_elements(kimi)
+                                    - kimi.padded_vocab * d)
+    assert f["picked"] == 32
+    assert f["every_bytes"] - f["picked_bytes"] == 2 * (384 - 32) * expert
+    assert f["every_ms"] == pytest.approx(f["every_bytes"] / 3.35e9)
+    assert 2 * 384 * expert / 1e9 == pytest.approx(67.65, abs=0.01)
+    assert f["every_ms"] == pytest.approx(21.09, abs=0.01)
+    assert f["picked_ms"] == pytest.approx(2.58, abs=0.01)
+    jamba = dataclasses.replace(get_config("jamba-v0.1-52b"),
+                                n_layers=chip_smoke.JAMBA_SERVE_LAYERS)
+    fj = chip_smoke.expert_floors(jamba)
+    assert fj["picked"] == 8
+    assert fj["every_ms"] == pytest.approx(15.39, abs=0.01)
+    assert fj["picked_ms"] == pytest.approx(8.66, abs=0.01)
+
+
 def test_prompt_batch_has_each_modes_keys():
     """Token prompts are the earlier phases' (a generator seeded 1); a
     mixed prompt splits as ``batch_specs`` (64 patches and 192 tokens at
@@ -405,6 +441,33 @@ def test_layer_parity_holds_qwen3_moe(monkeypatch):
     monkeypatch.setattr(ops, "attention", hot)
     with pytest.raises(RuntimeError, match="check failed"):
         chip_smoke.layer_parity("qwen3-moe smoke", model, prompts)
+
+
+def test_layer_parity_holds_kimi_k2(monkeypatch):
+    """Phases 22-23's check on the smoke kimi-k2 (a shared expert beside the
+    routed ones) at kimi's head dim 112: it passes, and a wrong attention
+    on the kernel path fails it."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_model, smoke
+
+    cfg = dataclasses.replace(smoke(get_config("kimi-k2-1t-a32b")),
+                              head_dim=112)
+    model = init_model(cfg, 0, device="cpu")
+    prompts = torch.randint(0, 512, (2, 12),
+                            generator=torch.Generator().manual_seed(0))
+    worst = chip_smoke.layer_parity("kimi-k2 smoke", model, prompts)
+    assert 0.0 <= worst["mixer_rel"] <= chip_smoke.MODEL_TOL
+    real = ops.attention
+
+    def hot(q, k, v, **kw):
+        return real(q * 1.05, k, v, **kw)
+
+    monkeypatch.setattr(ops, "attention", hot)
+    with pytest.raises(RuntimeError, match="check failed"):
+        chip_smoke.layer_parity("kimi-k2 smoke", model, prompts)
 
 
 # ---------------------------------------------------------------------------

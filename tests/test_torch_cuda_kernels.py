@@ -166,8 +166,9 @@ def model_views(seed, B, S, N, hd, dtype, device):
 
 @pytest.mark.parametrize("hd,hq,hkv,cap", [(64, 32, 8, 0.0),
                                            (128, 32, 8, 0.0),
-                                           (256, 8, 4, 50.0)],
-                         ids=["llama", "jamba", "gemma2"])
+                                           (256, 8, 4, 50.0),
+                                           (112, 64, 8, 0.0)],
+                         ids=["llama", "jamba", "gemma2", "kimi"])
 def test_attention_kernels_at_the_serving_shapes(hd, hq, hkv, cap, cuda):
     """bf16 prefill (4 x 256 tokens, hq q heads, hkv KV heads, gemma2's
     softcap) and a decode step against the (4, 512, hkv, hd) cache at
@@ -204,7 +205,7 @@ def test_flash_attention_window_at_gemma2_length(dtype, cuda):
         rtol=TOL[dtype], atol=TOL[dtype])
 
 
-@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("hd", [64, 112, 128, 256])
 def test_flash_attention_offset_and_kv_len_bf16(hd, cuda):
     """A chunk of 80 queries at q_offset 100 against 256 keys of which 170
     are valid, causal and not, with a window and a softcap."""
@@ -219,6 +220,39 @@ def test_flash_attention_offset_and_kv_len_bf16(hd, cuda):
             ops.flash_attention(q, k, v, **kw).float(),
             ref.attention_ref(q, k, v, **kw).float(),
             rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [0, 96], ids=["causal", "windowed"])
+def test_attention_kernels_at_head_dim_112(window, dtype, cuda):
+    """kimi-k2's head dim 112 with its GQA group of 8 (16 q heads, 2 KV
+    heads): a ragged causal prefill of 130 queries (three q tiles, the last
+    of 2 rows), with and without a window; a chunk at q_offset 40 against
+    200 keys of which 171 are valid; decode steps at ragged kv_len.  The
+    bf16 kernel lays the 112 dims out at 128 with zeros, so the padding
+    must not reach the output."""
+    q = model_views(120, 2, 130, 16, 112, dtype, cuda)
+    k = model_views(121, 2, 130, 2, 112, dtype, cuda)
+    v = model_views(122, 2, 130, 2, 112, dtype, cuda)
+    kw = dict(causal=True, window=window)
+    torch.testing.assert_close(
+        ops.flash_attention(q, k, v, **kw).float(),
+        ref.attention_ref(q, k, v, **kw).float(),
+        rtol=TOL[dtype], atol=TOL[dtype])
+    kc = model_views(123, 2, 200, 2, 112, dtype, cuda)
+    vc = model_views(124, 2, 200, 2, 112, dtype, cuda)
+    kw = dict(causal=True, window=window, q_offset=40, kv_len=171)
+    torch.testing.assert_close(
+        ops.flash_attention(q[:, :, :90], kc, vc, **kw).float(),
+        ref.attention_ref(q[:, :, :90], kc, vc, **kw).float(),
+        rtol=TOL[dtype], atol=TOL[dtype])
+    qd = model_views(125, 2, 1, 16, 112, dtype, cuda)
+    for kv_len in (1, 33, 171, 200):
+        torch.testing.assert_close(
+            ops.flash_decode(qd, kc, vc, kv_len).float(),
+            ref.attention_ref(qd, kc, vc, causal=False,
+                              kv_len=kv_len).float(),
+            rtol=TOL[dtype], atol=TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -261,7 +295,7 @@ def test_flash_decode_repeats_bitwise(cuda):
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
-    for hd in (48, 112):                 # head dims no kernel instantiates
+    for hd in (48, 96):                  # head dims no kernel instantiates
         q = torch.zeros((1, 4, 8, hd), device=cuda)
         with pytest.raises(ValueError, match="head_dim"):
             ops.flash_attention(q, q, q)

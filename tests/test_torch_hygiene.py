@@ -60,7 +60,8 @@ def test_scan_sees_the_whole_port():
             "optim/schedules.py", "data/pipeline.py", "core/state.py",
             "core/lifecycle.py", "core/control.py", "core/storage.py",
             "ckpt/shards.py", "ckpt/commit.py", "ckpt/restore.py",
-            "launch/steps.py", "launch/train.py"} <= names
+            "launch/steps.py", "launch/train.py", "launch/sharding.py",
+            "configs/kimi_k2_1t_a32b.py"} <= names
     assert (ROOT / "chip_smoke.py").exists()
 
 
