@@ -95,12 +95,36 @@ Phases, each of which must pass (any failure exits non-zero):
      22, decode ms a token beside the weights' floor (the single-shard
      MoE reads all 384 experts' weights every step), and a profiled
      wave's device-busy ms and idle share as in phase 18;
+ 24. the transactional serving engine (``repro_torch.serve.ServeEngine``)
+     with 64 closed-loop clients on ``decode="kernel"``: ``KernelDecode``
+     at llama3.2-1b's decode geometry (32/8 heads of 64) over a bf16 pool
+     of 64 sessions x 4,096 positions, every batch one ``flash_decode``
+     launch, every step's KV-cache update committed through the session's
+     protocol before it is acknowledged (``engine_config``).  24a: cornus,
+     then 2pc, on the delayed memory store (serve_bench's closed batched
+     cell without its deadline), 30 steps a session; 24b: the disruption
+     cell (replicated store, R = 3, a publish window over the middle
+     third, a replica killed as it opens, one step stalled and
+     scavenged), 45 steps a session; each run must complete and commit
+     every step (24b: all but the stalled one), drop nothing, raise no
+     decode error, form batches of more than one and launch
+     ``flash_decode`` once a batch (``engine_failures``); in 24a and
+     24b the first batch of each size and of each ``kv_len`` keeps what
+     ``flash_decode`` was given and returned (``DecodeRecorder``), and
+     each output is held against the plain version at the bf16 tolerance,
+     its K/V at the pool's (B, 8, 4,096, 64) (``decode_failures``);
+     p50/p95/p99,
+     TTFT, throughput and goodput are printed, and the p99s of cornus and
+     2pc and the publish-window ratio against 0.8 printed, not gated.
+     24c: 24a's cornus run under torch.profiler, its device-busy ms and
+     idle share, and the device ms of ``flash_decode`` beside the
+     ``index_select`` gathers before it (``device_ms_by_role``);
 then one ``{"kernels": [...]}`` line, whose launches are those of every
-served path's counted wave (phases 5, 8, 10, 14, 18, 20, 23) and of the
-training runs (phase 11).  The expert-parallel MoE (``moe.
-_moe_expert_parallel``) does not run here: NCCL puts one rank on a card,
-and the script needs one card; tests/test_torch_moe_ep.py holds it on four
-CPU ranks.
+served path's counted wave (phases 5, 8, 10, 14, 18, 20, 23), of the
+training runs (phase 11) and of the engine runs (phase 24).  The
+expert-parallel MoE (``moe._moe_expert_parallel``) does not run here:
+NCCL puts one rank on a card, and the script needs one card;
+tests/test_torch_moe_ep.py holds it on four CPU ranks.
 The last line is ``{"ok": true, "device": {...}}``.  Without a card, or
 outside a checkout, the script exits non-zero and prints no result.
 """
@@ -226,6 +250,17 @@ STUB_SEED = 0
 # serving (73.0 GB).
 KIMI = "kimi-k2-1t-a32b"
 KIMI_FP32_LAYERS, KIMI_SERVE_LAYERS = 1, 2
+# The serving engine (phase 24): ``ServeEngine`` with 64 closed-loop
+# clients over ``KernelDecode`` at llama3.2-1b's decode geometry (32 query
+# heads, 8 KV heads, head dim 64) with a pool of 64 sessions of 4,096
+# positions in bf16 (537 MB of K and V); the commit knobs are those of
+# benchmarks/serve_bench.py's quick cells (SERVICE_DELAY_MS 2.0, seed 7).
+ENGINE_CLIENTS = 64
+ENGINE_DECODE = dict(slots=64, q_heads=32, kv_heads=8, head_dim=64,
+                     max_len=4096)
+ENGINE_SERVICE_DELAY_MS = 2.0
+ENGINE_PAIR_STEPS, ENGINE_DISRUPTION_STEPS = 30, 45
+ENGINE_PUBLISH_RATIO = 0.8   # serve_bench's publish-window gate, printed
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -604,6 +639,297 @@ def directional_check(loss_at, params, grads, seed=0, eps_rel=3e-3):
             "central_eps": d_eps, "central_half_eps": d_half,
             "rel": abs(fd - dot) / max(abs(dot), 1e-30),
             "losses": [losses[h] for h in (eps, -eps, eps / 2, -eps / 2)]}
+
+
+# ---------------------------------------------------------------------------
+# Phase 24: the serving engine
+# ---------------------------------------------------------------------------
+def engine_config(cell, decode_kwargs, protocol="cornus"):
+    """The ``EngineConfig`` of one phase-24 run, on ``decode="kernel"``.
+
+    ``"pair"`` takes the knobs of serve_bench's ``_cell_config(protocol,
+    "closed", "batched", quick=True)`` without its 250 ms deadline, so that
+    a drop can only mean a fault; ``"disruption"`` those of
+    ``_disruption_config(quick=True)`` (replicated store, a publish window
+    over the middle third, a replica killed as it opens, one step stalled
+    and scavenged).  Both run ENGINE_CLIENTS clients."""
+    from repro_torch.serve import AdmissionConfig, EngineConfig, SessionConfig
+    if cell == "pair":
+        return EngineConfig(
+            session=SessionConfig(protocol=protocol, backend="memory",
+                                  participants_per_txn=3,
+                                  service_delay_ms=ENGINE_SERVICE_DELAY_MS,
+                                  seed=7),
+            admission=AdmissionConfig(max_batch=8, window_ms=1.0,
+                                      queue_depth=64),
+            decode="kernel", decode_kwargs=dict(decode_kwargs),
+            batch_mode="batched", seed=7, clients=ENGINE_CLIENTS,
+            steps_per_session=ENGINE_PAIR_STEPS)
+    if cell == "disruption":
+        return EngineConfig(
+            session=SessionConfig(protocol="cornus", backend="replicated",
+                                  replication=3, participants_per_txn=3,
+                                  service_delay_ms=ENGINE_SERVICE_DELAY_MS,
+                                  seed=7),
+            admission=AdmissionConfig(max_batch=8, window_ms=1.0),
+            decode="kernel", decode_kwargs=dict(decode_kwargs),
+            seed=7, clients=ENGINE_CLIENTS,
+            steps_per_session=ENGINE_DISRUPTION_STEPS,
+            publish_at=0.33, publish_until=0.66, publish_hosts=2,
+            publish_interval_s=0.02, kill_replica_at=0.33, stall_at=0.5)
+    raise ValueError(f"unknown engine cell {cell!r}")
+
+
+def engine_failures(engine, result, launches, cell):
+    """The checks phase 24 holds one engine run to; returns the failed
+    ones.  Every step came back from decode with nothing dropped and no
+    decode error; every step committed (the disruption cell: all but the
+    one stalled step, aborted by its scavenger); batches of more than one
+    formed; ``flash_decode`` launched once per batch.  The disruption cell
+    also needs the replica kill, the lease fast path and a committed
+    publish."""
+    cfg, rep, ctr = engine.cfg, result.report, result.counters
+    steps = cfg.clients * cfg.steps_per_session
+    stalled = int(cfg.stall_at is not None)
+    batches = engine.batcher.batches
+    want = [
+        (rep.completed == steps, f"completed {rep.completed} of {steps}"),
+        (rep.committed == steps - stalled,
+         f"committed {rep.committed}, expected {steps - stalled}"),
+        (rep.aborted == stalled == ctr["terminations"],
+         f"aborted {rep.aborted}, terminations {ctr['terminations']}, "
+         f"stalls {stalled}"),
+        (rep.dropped == 0 and rep.rejected == 0,
+         f"dropped {rep.dropped}, rejected {rep.rejected}"),
+        (engine.batcher.last_error is None,
+         f"decode raised {engine.batcher.last_error!r}"),
+        (ctr["max_batch_seen"] > 1,
+         f"largest batch {ctr['max_batch_seen']}"),
+        (launches.get("flash_decode") == batches > 0,
+         f"flash_decode launches {launches}, batches {batches}"),
+    ]
+    if cell == "disruption":
+        committed = [p for p in result.publishes
+                     if p.decision.name == "COMMIT"]
+        want += [
+            (ctr["replica_killed"] >= 0,
+             f"replica_killed {ctr['replica_killed']}"),
+            (ctr["fast_path_ops"] > 0,
+             f"fast_path_ops {ctr['fast_path_ops']}"),
+            (len(committed) >= 1,
+             f"{len(committed)} of {len(result.publishes)} publishes "
+             f"committed"),
+        ]
+    return [msg for ok, msg in want if not ok]
+
+
+class DecodeRecorder:
+    """While active, wraps ``ops.flash_decode`` so that the first batch of
+    each size and the first of each ``kv_len`` leave a copy of what the
+    engine gave the kernel and got back: the query, the gathered K/V rows
+    below ``kv_len`` (all the kernel may read), the output, and the full
+    K/V shape and strides.  ``errors`` holds each output against
+    ``ref.attention_ref`` on the same inputs after the run, so the check
+    adds no launch.  Only the batcher's worker thread calls the kernel."""
+
+    def __init__(self):
+        from repro_torch.kernels import ops
+        self._ops, self.records = ops, []
+        self._sizes, self._lens = set(), set()
+
+    def __enter__(self):
+        self._kernel = self._ops.flash_decode
+        self._ops.flash_decode = self._call
+        return self
+
+    def __exit__(self, *exc):
+        self._ops.flash_decode = self._kernel
+
+    def _call(self, q, k, v, kv_len, **kw):
+        out = self._kernel(q, k, v, kv_len, **kw)
+        B = q.shape[0]
+        if B not in self._sizes or kv_len not in self._lens:
+            self._sizes.add(B)
+            self._lens.add(kv_len)
+            self.records.append({
+                "q": q.clone(), "k": k[:, :, :kv_len].clone(),
+                "v": v[:, :, :kv_len].clone(), "out": out.clone(),
+                "kv_len": kv_len, "softcap": kw.get("softcap", 0.0),
+                "kv_shape": tuple(k.shape), "kv_stride": tuple(k.stride()),
+                "dtype": str(k.dtype).removeprefix("torch.")})
+        return out
+
+    def errors(self):
+        """One row per record: B, kv_len, the K/V shape, the max abs error
+        against the plain version and whether it is within TOL."""
+        import torch
+
+        from repro_torch.kernels import ref
+        rows = []
+        for r in self.records:
+            want = ref.attention_ref(r["q"], r["k"], r["v"], causal=False,
+                                     softcap=r["softcap"],
+                                     kv_len=r["kv_len"])
+            got, tol = r["out"], TOL[r["dtype"]]
+            ok = got.dtype == want.dtype and bool(torch.allclose(
+                got.float(), want.float(), rtol=tol, atol=tol))
+            rows.append({"B": r["q"].shape[0], "kv_len": r["kv_len"],
+                         "kv_shape": r["kv_shape"],
+                         "kv_stride": r["kv_stride"],
+                         "max_abs_err": max_err(got, want), "ok": ok})
+        return rows
+
+
+def decode_failures(rows, decode_kwargs, max_batch_seen):
+    """The checks phase 24 holds the recorded ``flash_decode`` calls of
+    one engine run to: every output within TOL of the plain version, every
+    gathered K/V at the pool's geometry, and the largest batch recorded."""
+    want_kv = (decode_kwargs["kv_heads"], decode_kwargs["max_len"],
+               decode_kwargs["head_dim"])
+    fails = [f"B {r['B']} kv_len {r['kv_len']}: max abs err "
+             f"{r['max_abs_err']:g}" for r in rows if not r["ok"]]
+    fails += [f"B {r['B']}: K/V {r['kv_shape']}, not (B, *{want_kv})"
+              for r in rows if r["kv_shape"][1:] != want_kv]
+    if max(r["B"] for r in rows) != max_batch_seen:
+        fails.append(f"largest batch recorded "
+                     f"{max(r['B'] for r in rows)}, seen {max_batch_seen}")
+    return fails
+
+
+def engine_summary(result):
+    """The SLO numbers phase 24 prints for one run."""
+    rep = result.report
+    return {"protocol": rep.protocol, "completed": rep.completed,
+            "committed": rep.committed, "aborted": rep.aborted,
+            "dropped": rep.dropped, "elapsed_s": rep.elapsed_s,
+            "p50_ms": rep.p50_ms, "p95_ms": rep.p95_ms,
+            "p99_ms": rep.p99_ms, "ttft_p50_ms": rep.ttft_p50_ms,
+            "throughput_tps": rep.throughput_tps,
+            "goodput_tps": rep.goodput_tps, "mean_batch": rep.mean_batch,
+            "publish_disruption": rep.publish_disruption,
+            "publishes": len(result.publishes),
+            "batches": result.counters["batches"],
+            "max_batch_seen": result.counters["max_batch_seen"],
+            "fast_path_ops": result.counters["fast_path_ops"],
+            "replica_killed": result.counters["replica_killed"]}
+
+
+def device_ms_by_role(acts):
+    """Device ms of one profiled engine run by role: the ``flash_decode``
+    kernel, the ``index_select`` gathers of the sessions' cache rows that
+    ``KernelDecode`` runs before it, and everything else."""
+    out = {"flash_decode": 0.0, "index_select": 0.0, "other": 0.0}
+    for e in acts:
+        name = e.name.lower()
+        role = ("flash_decode" if "decode_kernel" in name else
+                "index_select" if "indexselect" in name
+                or "index_select" in name else "other")
+        out[role] += (e.time_range.end - e.time_range.start) / 1e3
+    return out
+
+
+def engine_phase(torch, dev, by_path):
+    """Phase 24: ``ServeEngine`` on the card, each run's launches added to
+    ``by_path`` under "serving engine <run>".  Every decode batch is one
+    flash_decode launch over the sessions' gathered cache rows; every step
+    commits its KV-cache update through the session's protocol before it
+    is acknowledged.  24a runs cornus
+    then 2pc, 24b the disruption cell, 24c 24a's cornus run once more
+    under torch.profiler.  The two comparisons (p99s, publish window) are
+    printed, not gated: host-clock numbers spread between calls, and the
+    reference gates them only in its bench, on best-of-3 runs.  Returns
+    the largest error of the recorded ``flash_decode`` outputs against the
+    plain version (``DecodeRecorder``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.profile import _busy_ms
+    from repro_torch.serve import ServeEngine
+    t_engine = time.perf_counter()
+    ekw = dict(ENGINE_DECODE, dtype=torch.bfloat16, device=dev)
+    decode_err = [0.0]      # over the recorded flash_decode calls
+
+    def engine_run(tag, cfg, cell, prof=None, counted=True):
+        """One engine run (launch counters from 0), checked by
+        ``engine_failures``; with ``prof``, under that profiler.  A counted
+        run's launches join ``by_path``."""
+        engine = ServeEngine(cfg)
+        rec = DecodeRecorder()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        if prof is None:
+            with rec:
+                res = engine.run()
+        else:
+            with prof:
+                res = engine.run()
+                torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = ops.launch_counts()
+        fails = engine_failures(engine, res, launches, cell)
+        check(not fails, f"[engine {tag}] {fails}")
+        if counted:
+            by_path[f"serving engine {tag}"] = launches
+        out = {"run": tag, **engine_summary(res), "wall_ms": wall_ms,
+               "launches": launches}
+        if rec.records:
+            rows = rec.errors()
+            fails = decode_failures(rows, ekw, res.counters["max_batch_seen"])
+            check(not fails, f"[engine {tag}] flash_decode: {fails}")
+            out["decode_cases"] = [(r["B"], r["kv_len"]) for r in rows]
+            out["decode_max_abs_err"] = max(r["max_abs_err"] for r in rows)
+            decode_err[0] = max(decode_err[0], out["decode_max_abs_err"])
+        log(f"[engine] {json.dumps(out)}")
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    # A short run first: on the H100 the first engine run of a process paid
+    # about half a second of one-time host costs in its first steps, which
+    # would land in the tail of whichever protocol ran first.
+    engine_run("warm-up", dataclasses.replace(engine_config("pair", ekw),
+                                              steps_per_session=2),
+               "pair", counted=False)
+    pair = {proto: engine_run(proto, engine_config("pair", ekw, proto),
+                              "pair")                                # 24a
+            for proto in ("cornus", "2pc")}
+    log(f"[engine] p99 cornus {pair['cornus']['p99_ms']:.3f} ms, 2pc "
+        f"{pair['2pc']['p99_ms']:.3f} ms (printed, not gated): "
+        f"cornus <= 2pc {pair['cornus']['p99_ms'] <= pair['2pc']['p99_ms']}")
+    dis = engine_run("disruption", engine_config("disruption", ekw),
+                     "disruption")                                   # 24b
+    ratio = dis["publish_disruption"]
+    log(f"[engine] publish_disruption {ratio} against "
+        f"{ENGINE_PUBLISH_RATIO} (printed, not gated): "
+        f"{ratio is not None and ratio >= ENGINE_PUBLISH_RATIO}")
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    prof_run = engine_run("cornus profiled",
+                          engine_config("pair", ekw, "cornus"), "pair",
+                          prof=prof)                                 # 24c
+    acts = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = _busy_ms(acts)
+    roles = device_ms_by_role(acts)
+    by_name = {}
+    for e in acts:
+        by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + \
+            (e.time_range.end - e.time_range.start) / 1e3
+    check(roles["flash_decode"] > 0, "the profile shows no flash_decode")
+    # The idle share over the engine's own run (batcher start to stop), not
+    # the profiler's start and stop around it.
+    run_ms = prof_run["elapsed_s"] * 1e3
+    profiled = {"run_ms": run_ms, "wall_ms": prof_run["wall_ms"],
+                "device_busy_ms": busy, "idle_share": 1 - busy / run_ms,
+                "device_activities": len(acts), "device_ms_by_role": roles,
+                "batches": prof_run["batches"],
+                "top_device_ms": sorted(by_name.items(),
+                                        key=lambda kv: -kv[1])[:8]}
+    log(f"[engine profile] {json.dumps(profiled)}")
+    log(f"[engine] phase 24 {time.perf_counter() - t_engine:.1f} s")
+    return decode_err[0]
 
 
 def layer_parity(name, model, prompts, tol=MODEL_TOL):
@@ -1968,6 +2294,15 @@ def run(torch) -> int:
         f"{time.perf_counter() - t_kimi:.1f} s")
     del model
     free_memory()
+
+    # -- 24. the serving engine: sessions committed through the protocols ----
+    engine_err = engine_phase(torch, dev, by_path)
+    # flash_decode's outputs on the engine's path (24a-24b), held against
+    # the plain version in the phase, join its bf16 error.
+    decode_entry = next(e for e in kernels if e["name"] == "flash_decode")
+    decode_entry["engine_max_abs_err"] = engine_err
+    decode_entry["max_abs_err"] = max(decode_entry["max_abs_err"],
+                                      engine_err)
 
     for entry in kernels:
         per = {path: c[entry["name"]] for path, c in by_path.items()}

@@ -531,3 +531,180 @@ def test_directional_check_holds_the_gradient_and_catches_a_wrong_one():
         loss_at, params, [torch.zeros_like(x) if i % 2 else x
                           for i, x in enumerate(g)], seed=1)
     assert dropped["rel"] > 1e-2, dropped
+
+
+# ---------------------------------------------------------------------------
+# Phase 24: the serving engine
+# ---------------------------------------------------------------------------
+def _bench_knobs(func_name):
+    """The keyword arguments of each config call in serve_bench's
+    ``func_name``, read from the file's source (no import of benchmarks),
+    with ``a if quick else b`` taken as ``a`` and SERVICE_DELAY_MS and the
+    function's arguments resolved."""
+    import ast
+    src = (ROOT / "benchmarks" / "serve_bench.py").read_text()
+    tree = ast.parse(src)
+    consts = {n.targets[0].id: ast.literal_eval(n.value) for n in tree.body
+              if isinstance(n, ast.Assign) and len(n.targets) == 1
+              and isinstance(n.targets[0], ast.Name)
+              and isinstance(n.value, ast.Constant)}
+    fn = next(n for n in tree.body if isinstance(n, ast.FunctionDef)
+              and n.name == func_name)
+
+    def value(node):
+        if isinstance(node, ast.IfExp):          # `a if quick else b`
+            return value(node.body)
+        if isinstance(node, ast.Name):
+            return consts.get(node.id, f"<{node.id}>")
+        return ast.literal_eval(node)
+
+    knobs = {}
+    for node in ast.walk(fn):
+        if isinstance(node, ast.Call) and isinstance(node.func, ast.Name) \
+                and node.func.id.endswith("Config"):
+            knobs.setdefault(node.func.id, {k.arg: value(k.value)
+                                            for k in node.keywords
+                                            if not isinstance(k.value,
+                                                              ast.Call)})
+    return knobs
+
+
+def _assert_knobs(cfg, knobs, skip=()):
+    held = 0
+    for cls, attr in (("SessionConfig", cfg.session),
+                      ("AdmissionConfig", cfg.admission),
+                      ("EngineConfig", cfg)):
+        for name, want in knobs[cls].items():
+            if name in skip or str(want).startswith("<"):
+                continue
+            assert getattr(attr, name) == want, (cls, name)
+            held += 1
+    assert held >= 9, knobs          # the source was read, not skipped
+
+
+@pytest.mark.parametrize("protocol", ["cornus", "2pc"])
+def test_engine_pair_config_has_serve_bench_knobs(protocol):
+    cfg = chip_smoke.engine_config("pair", {"device": "cpu"}, protocol)
+    # Phase 24a drops the deadline (a drop can only mean a fault), runs 64
+    # clients and decodes through the kernel.
+    _assert_knobs(cfg, _bench_knobs("_cell_config"),
+                  skip=("deadline_ms", "clients", "decode"))
+    assert cfg.session.protocol == protocol
+    assert cfg.admission.deadline_ms is None
+    assert cfg.clients == chip_smoke.ENGINE_CLIENTS == 64
+    assert cfg.steps_per_session == 30 and cfg.arrival == "closed"
+    assert cfg.decode == "kernel" and cfg.decode_kwargs == {"device": "cpu"}
+
+
+def test_engine_disruption_config_has_serve_bench_knobs():
+    cfg = chip_smoke.engine_config("disruption", {"device": "cpu"})
+    _assert_knobs(cfg, _bench_knobs("_disruption_config"),
+                  skip=("clients", "decode"))
+    assert cfg.session.backend == "replicated" and cfg.session.replication == 3
+    assert cfg.steps_per_session == 45 and cfg.stall_at == 0.5
+    assert cfg.kill_replica_at == cfg.publish_at == 0.33
+    assert chip_smoke.ENGINE_SERVICE_DELAY_MS == \
+        _bench_knobs("_disruption_config")["SessionConfig"]["service_delay_ms"]
+    with pytest.raises(ValueError, match="unknown engine cell"):
+        chip_smoke.engine_config("open", {})
+
+
+def test_engine_decode_geometry_is_llama_decode():
+    from repro_torch.configs import get_config
+    cfg = get_config("llama3.2-1b")
+    d = chip_smoke.ENGINE_DECODE
+    assert (d["q_heads"], d["kv_heads"], d["head_dim"]) == \
+        (cfg.n_heads, cfg.n_kv_heads, cfg.hd)
+    assert d["slots"] == chip_smoke.ENGINE_CLIENTS
+    pool = 2 * d["slots"] * d["kv_heads"] * d["max_len"] * d["head_dim"] * 2
+    assert pool == 536_870_912          # 537 MB of bf16 K and V
+
+
+def _small_engine(cell, **over):
+    """A phase-24 cell cut to the CPU: 8 clients, few steps, a small pool
+    of CPU tensors (the plain flash_decode)."""
+    import dataclasses
+
+    from repro_torch.serve import ServeEngine
+    cfg = chip_smoke.engine_config(
+        cell, dict(slots=8, q_heads=4, kv_heads=2, head_dim=16, max_len=64,
+                   device="cpu"))
+    cfg = dataclasses.replace(cfg, clients=8, steps_per_session=6, **over)
+    cfg.session.service_delay_ms = 0.3
+    engine = ServeEngine(cfg)
+    return engine, engine.run()
+
+
+@pytest.mark.parametrize("cell", ["pair", "disruption"])
+def test_engine_failures_pass_a_good_run_and_flag_faults(cell):
+    engine, res = _small_engine(cell)
+    good = {"flash_decode": engine.batcher.batches, "flash_attention": 0}
+    assert chip_smoke.engine_failures(engine, res, good, cell) == []
+    summary = chip_smoke.engine_summary(res)
+    assert summary["completed"] == 8 * 6 and summary["p99_ms"] > 0
+    # One launch short of the batches: the path skipped the kernel once.
+    short = dict(good, flash_decode=engine.batcher.batches - 1)
+    assert any("launches" in f for f in
+               chip_smoke.engine_failures(engine, res, short, cell))
+    # A decode error, a drop and a missing commit are each flagged.
+    engine.batcher.last_error = RuntimeError("kernel refused")
+    res.report.dropped, res.report.committed = 1, res.report.committed - 1
+    fails = chip_smoke.engine_failures(engine, res, good, cell)
+    assert any("raised" in f for f in fails)
+    assert any("dropped 1" in f for f in fails)
+    assert any("committed" in f for f in fails)
+
+
+def test_engine_failures_need_the_disruption_cells_events():
+    engine, res = _small_engine("disruption", publish_at=None,
+                                kill_replica_at=None)
+    good = {"flash_decode": engine.batcher.batches}
+    fails = chip_smoke.engine_failures(engine, res, good, "disruption")
+    assert any("replica_killed -1" in f for f in fails)
+    assert any("publishes committed" in f for f in fails)
+    assert chip_smoke.engine_failures(engine, res, good, "pair") == []
+
+
+def test_device_ms_by_role_splits_the_kernel_and_the_gathers():
+    from types import SimpleNamespace as NS
+
+    def act(name, start, end):
+        return NS(name=name, time_range=NS(start=start, end=end))
+
+    acts = [act("void decode_kernel<__nv_bfloat16, 4, 64>(DecodeArgs)",
+                0, 30),
+            act("void at::native::indexSelectLargeIndex<c10::BFloat16>",
+                30, 80),
+            act("void at::native::index_put_kernel_impl", 80, 90),
+            act("Memcpy HtoD (Pageable -> Device)", 90, 92)]
+    roles = chip_smoke.device_ms_by_role(acts)
+    assert roles == pytest.approx({"flash_decode": 0.030,
+                                   "index_select": 0.050, "other": 0.012})
+
+
+def test_decode_recorder_holds_what_flash_decode_gave_the_engine():
+    from repro_torch.kernels import ops
+    kernel = ops.flash_decode
+    with chip_smoke.DecodeRecorder() as rec:
+        engine, res = _small_engine("pair")
+    assert ops.flash_decode is kernel            # unwrapped after the run
+    seen = res.counters["max_batch_seen"]
+    rows = rec.errors()
+    kw = dict(kv_heads=2, max_len=64, head_dim=16)
+    assert chip_smoke.decode_failures(rows, kw, seen) == []
+    # The first batch of each size and of each kv_len is kept: the first
+    # batch of the run attends to one position, none to more than a
+    # session's steps.
+    sizes, lens = {r["B"] for r in rows}, {r["kv_len"] for r in rows}
+    assert max(sizes) == seen > 1 and 1 in lens and max(lens) <= 6
+    assert len(rows) <= len(sizes) + len(lens)
+    assert all(r["kv_shape"] == (r["B"], 2, 64, 16) for r in rows)
+    # A wrong output, K/V off the pool's geometry and a batch size the
+    # recorder missed are each flagged.
+    rec.records[0]["out"] = rec.records[0]["out"] + 0.1
+    assert any("max abs err" in f for f in
+               chip_smoke.decode_failures(rec.errors(), kw, seen))
+    assert any("K/V" in f for f in chip_smoke.decode_failures(
+        rows, dict(kw, max_len=4096), seen))
+    assert any("largest batch" in f for f in
+               chip_smoke.decode_failures(rows, kw, seen + 1))

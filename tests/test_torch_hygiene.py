@@ -61,7 +61,15 @@ def test_scan_sees_the_whole_port():
             "core/lifecycle.py", "core/control.py", "core/storage.py",
             "ckpt/shards.py", "ckpt/commit.py", "ckpt/restore.py",
             "launch/steps.py", "launch/train.py", "launch/sharding.py",
-            "configs/kimi_k2_1t_a32b.py"} <= names
+            "configs/kimi_k2_1t_a32b.py", "core/sim.py", "core/stores.py",
+            "core/protocols/__init__.py", "core/protocols/registry.py",
+            "core/protocols/transport.py", "core/protocols/context.py",
+            "core/protocols/base.py", "core/protocols/cornus.py",
+            "core/protocols/twopc.py", "core/protocols/coordinator_log.py",
+            "core/protocols/cornus_opt1.py", "core/protocols/paxos_commit.py",
+            "txn/__init__.py", "txn/threaded.py", "serve/slo.py",
+            "serve/session.py", "serve/publisher.py",
+            "serve/engine.py"} <= names
     assert (ROOT / "chip_smoke.py").exists()
 
 
@@ -77,7 +85,7 @@ def test_entry_points_refuse_the_cpu_by_default(no_cuda):
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import ServeConfig, generate
     from repro_torch.models import init_cache, init_model, smoke
-    from repro_torch.serve import KernelDecode
+    from repro_torch.serve import EngineConfig, KernelDecode, ServeEngine
 
     cfg = smoke(get_config("llama3.2-1b"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -90,6 +98,8 @@ def test_entry_points_refuse_the_cpu_by_default(no_cuda):
         init_cache(smoke(get_config("jamba-v0.1-52b")), 1, 8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         KernelDecode(slots=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(EngineConfig(decode="kernel"))
     from repro_torch.launch import xlstm_probe
     with pytest.raises(RuntimeError, match="no CUDA device"):
         xlstm_probe.main([])
