@@ -6,7 +6,7 @@ every one of the JAX package's ten configs.
 from __future__ import annotations
 
 import importlib
-from typing import List
+from typing import Dict, List
 
 from ..models.config import ModelConfig
 
@@ -30,3 +30,7 @@ def get_config(arch: str) -> ModelConfig:
     if mod_name not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(ALIASES)}")
     return importlib.import_module(f"{__name__}.{mod_name}").CONFIG
+
+
+def all_configs() -> Dict[str, ModelConfig]:
+    return {a: get_config(a) for a in ARCH_IDS}

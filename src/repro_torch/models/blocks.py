@@ -38,18 +38,6 @@ MLSTM_CHUNK = 256   # mLSTM: chunkwise-parallel block size of the plain cell
 ATTN_KINDS = ("attn", "attn_local")
 FFN_KINDS = ATTN_KINDS + ("mamba",)     # the kinds that carry an FFN
 
-# Where each part the port does not run yet is queued.
-_NOT_PORTED = {
-    "compress": "ROADMAP Queue 1 item 8 (optim/compress.py, int8 "
-                "gradients)",
-}
-
-
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet: {_NOT_PORTED[what]}")
-
-
 @dataclass
 class Ctx:
     mode: str                       # train | prefill | decode
@@ -74,23 +62,28 @@ def attn_specs(cfg: ModelConfig) -> Dict[str, PSpec]:
     d, hd = cfg.d_model, cfg.hd
     nq, nkv = cfg.n_heads, cfg.n_kv_heads
     s = {
-        "ln": PSpec((d,), init="zeros"),
-        "wq": PSpec((d, nq * hd)),
-        "wk": PSpec((d, nkv * hd)),
-        "wv": PSpec((d, nkv * hd)),
-        "wo": PSpec((nq * hd, d)),
+        "ln": PSpec((d,), (None,), init="zeros"),
+        "wq": PSpec((d, nq * hd), ("fsdp", "model")),
+        "wk": PSpec((d, nkv * hd), ("fsdp", "model")),
+        "wv": PSpec((d, nkv * hd), ("fsdp", "model")),
+        "wo": PSpec((nq * hd, d), ("model", "fsdp")),
     }
     if cfg.qk_norm:
-        s["q_norm"] = PSpec((hd,), init="zeros")
-        s["k_norm"] = PSpec((hd,), init="zeros")
+        s["q_norm"] = PSpec((hd,), (None,), init="zeros")
+        s["k_norm"] = PSpec((hd,), (None,), init="zeros")
     if cfg.post_norm:
-        s["post_ln"] = PSpec((d,), init="zeros")
+        s["post_ln"] = PSpec((d,), (None,), init="zeros")
     return s
 
 
 def attn_cache_shape(cfg: ModelConfig, batch: int, max_len: int):
     shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
-    return {"k": PSpec(shape, init="zeros"), "v": PSpec(shape, init="zeros")}
+    # Sequence-sharded KV cache (flash-decode): batch holds "data", so the
+    # cache seq dim takes "model"; at batch=1 it takes both axes.
+    kv_axes = ("batch", "cache_seq_full" if batch == 1 else "cache_seq",
+               None, None)
+    return {"k": PSpec(shape, kv_axes, init="zeros"),
+            "v": PSpec(shape, kv_axes, init="zeros")}
 
 
 def attn_apply(cfg: ModelConfig, p: Mapping[str, torch.Tensor], x, ctx: Ctx):
@@ -137,15 +130,15 @@ def mamba_specs(cfg: ModelConfig) -> Dict[str, PSpec]:
     n = cfg.ssm_state
     dt_rank = max(1, d // 16)
     return {
-        "ln": PSpec((d,), init="zeros"),
-        "w_in": PSpec((d, 2 * di)),
-        "conv": PSpec((cfg.ssm_conv, di), scale=0.1),
-        "w_bcdt": PSpec((di, 2 * n + dt_rank)),
-        "w_dt": PSpec((dt_rank, di), scale=0.5),
-        "dt_bias": PSpec((di,), init="zeros"),
-        "a_log": PSpec((di, n), init="zeros"),
-        "d_skip": PSpec((di,), init="ones"),
-        "w_out": PSpec((di, d)),
+        "ln": PSpec((d,), (None,), init="zeros"),
+        "w_in": PSpec((d, 2 * di), ("fsdp", "model")),
+        "conv": PSpec((cfg.ssm_conv, di), (None, "model"), scale=0.1),
+        "w_bcdt": PSpec((di, 2 * n + dt_rank), ("model", None)),
+        "w_dt": PSpec((dt_rank, di), (None, "model"), scale=0.5),
+        "dt_bias": PSpec((di,), ("model",), init="zeros"),
+        "a_log": PSpec((di, n), ("model", None), init="zeros"),
+        "d_skip": PSpec((di,), ("model",), init="ones"),
+        "w_out": PSpec((di, d), ("model", "fsdp")),
     }
 
 
@@ -153,9 +146,10 @@ def mamba_cache_shape(cfg: ModelConfig, batch: int, _max_len: int):
     """The conv window in the activations' dtype; the SSM state fp32."""
     di = cfg.ssm_expand * cfg.d_model
     return {
-        "conv": PSpec((batch, cfg.ssm_conv - 1, di), init="zeros"),
-        "ssm": PSpec((batch, di, cfg.ssm_state), init="zeros",
-                     dtype=torch.float32),
+        "conv": PSpec((batch, cfg.ssm_conv - 1, di), ("batch", None, "model"),
+                      init="zeros"),
+        "ssm": PSpec((batch, di, cfg.ssm_state), ("batch", "model", None),
+                     init="zeros", dtype=torch.float32),
     }
 
 
@@ -252,14 +246,14 @@ def mlstm_specs(cfg: ModelConfig) -> Dict[str, PSpec]:
     d = cfg.d_model
     di = int(cfg.mlstm_proj_factor * d)
     return {
-        "ln": PSpec((d,), init="zeros"),
-        "w_up": PSpec((d, 2 * di)),
-        "wq": PSpec((di, di)),
-        "wk": PSpec((di, di)),
-        "wv": PSpec((di, di)),
-        "w_if": PSpec((di, 2 * cfg.n_heads), scale=0.1),
-        "out_norm": PSpec((di,), init="zeros"),
-        "w_down": PSpec((di, d)),
+        "ln": PSpec((d,), (None,), init="zeros"),
+        "w_up": PSpec((d, 2 * di), ("fsdp", "model")),
+        "wq": PSpec((di, di), ("model", None)),
+        "wk": PSpec((di, di), ("model", None)),
+        "wv": PSpec((di, di), ("model", None)),
+        "w_if": PSpec((di, 2 * cfg.n_heads), ("model", None), scale=0.1),
+        "out_norm": PSpec((di,), ("model",), init="zeros"),
+        "w_down": PSpec((di, d), ("model", "fsdp")),
     }
 
 
@@ -267,10 +261,10 @@ def mlstm_cache_shape(cfg: ModelConfig, batch: int, _max_len: int):
     di = int(cfg.mlstm_proj_factor * cfg.d_model)
     hd = di // cfg.n_heads
     return {
-        "C": PSpec((batch, cfg.n_heads, hd, hd), init="zeros",
-                   dtype=torch.float32),
-        "n": PSpec((batch, cfg.n_heads, hd), init="zeros",
-                   dtype=torch.float32),
+        "C": PSpec((batch, cfg.n_heads, hd, hd), ("batch", None, None, None),
+                   init="zeros", dtype=torch.float32),
+        "n": PSpec((batch, cfg.n_heads, hd), ("batch", None, None),
+                   init="zeros", dtype=torch.float32),
     }
 
 
@@ -377,17 +371,19 @@ def slstm_specs(cfg: ModelConfig) -> Dict[str, PSpec]:
     fh = int(cfg.slstm_proj_factor * d)
     hd = d // cfg.n_heads
     return {
-        "ln": PSpec((d,), init="zeros"),
-        "w_gates": PSpec((d, 4 * d)),
-        "r_gates": PSpec((cfg.n_heads, hd, 4 * hd), scale=0.3),
-        "ln_ff": PSpec((d,), init="zeros"),
-        "w_ff1": PSpec((d, fh)),
-        "w_ff2": PSpec((fh, d)),
+        "ln": PSpec((d,), (None,), init="zeros"),
+        "w_gates": PSpec((d, 4 * d), ("fsdp", "model")),
+        "r_gates": PSpec((cfg.n_heads, hd, 4 * hd), (None, None, None),
+                         scale=0.3),
+        "ln_ff": PSpec((d,), (None,), init="zeros"),
+        "w_ff1": PSpec((d, fh), ("fsdp", "model")),
+        "w_ff2": PSpec((fh, d), ("model", "fsdp")),
     }
 
 
 def slstm_cache_shape(cfg: ModelConfig, batch: int, _max_len: int):
-    return {n: PSpec((batch, cfg.d_model), init="zeros", dtype=torch.float32)
+    return {n: PSpec((batch, cfg.d_model), ("batch", "model"), init="zeros",
+                     dtype=torch.float32)
             for n in ("c", "n", "h", "m")}
 
 
@@ -440,17 +436,17 @@ def slstm_apply(cfg: ModelConfig, p: Mapping[str, torch.Tensor], x,
 def ffn_specs(cfg: ModelConfig, is_moe: bool) -> Dict[str, Any]:
     """{name: PSpec}; an MoE layer nests its specs under ``moe``."""
     d = cfg.d_model
-    s: Dict[str, Any] = {"ln": PSpec((d,), init="zeros")}
+    s: Dict[str, Any] = {"ln": PSpec((d,), (None,), init="zeros")}
     if is_moe:
         s["moe"] = moe_specs(cfg)
     else:
         s.update({
-            "w_gate": PSpec((d, cfg.d_ff)),
-            "w_up": PSpec((d, cfg.d_ff)),
-            "w_down": PSpec((cfg.d_ff, d)),
+            "w_gate": PSpec((d, cfg.d_ff), ("fsdp", "model")),
+            "w_up": PSpec((d, cfg.d_ff), ("fsdp", "model")),
+            "w_down": PSpec((cfg.d_ff, d), ("model", "fsdp")),
         })
     if cfg.post_norm:
-        s["post_ln"] = PSpec((d,), init="zeros")
+        s["post_ln"] = PSpec((d,), (None,), init="zeros")
     return s
 
 
@@ -479,8 +475,6 @@ MIXERS = {
 
 
 def mixer(kind: str):
-    if kind not in MIXERS:
-        raise not_ported(kind)
     return MIXERS[kind]
 
 

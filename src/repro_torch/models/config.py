@@ -13,6 +13,9 @@ mamba term, which counts ``di·(2N + 2)`` for ``w_bcdt``, ``w_dt``,
 ``dt_bias``, ``a_log`` and ``d_skip`` where ``mamba_specs`` holds
 ``di·(2N + dt_rank) + dt_rank·di + di·N + 2·di``, and its norms: three a
 layer where an attention layer's specs hold two, and no post norms.
+``active_param_count`` subtracts the unpicked experts from that count, so
+it carries the same miscounts.  ``ShapeConfig`` and ``ALL_SHAPES`` are the
+reference's four input-shape cells.
 """
 from __future__ import annotations
 
@@ -163,6 +166,34 @@ class ModelConfig:
                 total += d  # ffn norm
         total += d  # final norm
         return total
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top-k experts only)."""
+        if self.moe_period == 0:
+            return self.param_count()
+        d = self.d_model
+        eff = self.expert_d_ff or self.d_ff
+        n_moe_layers = sum(1 for i in range(self.n_layers)
+                           if self.is_moe_layer(i))
+        inactive = n_moe_layers * (self.n_experts - self.experts_per_token) \
+            * 3 * d * eff
+        return self.param_count() - inactive
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4_096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524_288, 1, "decode")
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
 
 
 def smoke(cfg: ModelConfig) -> ModelConfig:

@@ -1,12 +1,15 @@
 """Shared layers: the port of ``repro.models.layers`` for the dense decoder.
 
 Conventions:
-  * Parameters are declared once as ``PSpec`` trees (shape + init), from
-    which ``init_tensor`` draws real tensors with an explicit
-    ``torch.Generator`` (the same per-leaf distributions as the JAX package;
-    the numbers differ, so tests carry the JAX weights over instead).
-  * The JAX package's sharding annotations (``constrain``) are identities on
-    one device and have no counterpart here.
+  * Parameters are declared once as ``PSpec`` trees (shape + logical
+    sharding axes + init), from which ``init_tensor`` draws real tensors
+    with an explicit ``torch.Generator`` (the same per-leaf distributions
+    as the JAX package; the numbers differ, so tests carry the JAX weights
+    over instead), and ``param_structs`` builds tensors on the ``meta``
+    device, DTensors placed by ``launch.sharding`` rules, which allocate
+    nothing.  A spec tree is a dict (or list) of ``PSpec`` and subtrees.
+  * The JAX package's activation annotations (``constrain``) are
+    identities on one device; the port's model code does not call them.
   * ``attention`` is the plain, exact attention in the model's
     ``(B, S, N, hd)`` layout.  The kernels in ``repro_torch.kernels`` compute
     the same function on the card; the JAX package's chunked variant, which
@@ -17,7 +20,7 @@ from __future__ import annotations
 import functools
 import math
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +33,7 @@ import torch.nn.functional as F
 @dataclass(frozen=True)
 class PSpec:
     shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]  # a logical axis name (or None) a dim
     init: str = "normal"            # normal | zeros | ones
     scale: Optional[float] = None   # stddev; None => 1/sqrt(fan_in = shape[-2])
     # None => the caller's dtype; recurrent states pin fp32 whatever it is
@@ -40,6 +44,62 @@ class PSpec:
             return self.scale
         fan_in = self.shape[-2] if len(self.shape) >= 2 else self.shape[-1]
         return 1.0 / math.sqrt(max(1, fan_in))
+
+
+def map_specs(fn: Callable[[PSpec], Any], tree):
+    """``fn`` of every ``PSpec`` of a spec tree, in the tree's shape."""
+    if isinstance(tree, PSpec):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_specs(fn, v) for k, v in tree.items()}
+    return [map_specs(fn, v) for v in tree]
+
+
+def param_structs(spec_tree, rules, dtype=torch.bfloat16):
+    """Each leaf as a tensor on the ``meta`` device (nothing allocated):
+    with ``rules``, a DTensor with the global shape, placed over
+    ``rules.mesh`` as ``rules.sharding`` says, whose local tensor is this
+    rank's shard (a ragged last shard where the axes do not divide the
+    dim, as ``Shard`` cuts it)."""
+    def mk(spec: PSpec):
+        dt = spec.dtype or dtype
+        if rules is None:
+            return torch.empty(spec.shape, dtype=dt, device="meta")
+        from torch.distributed.tensor import DTensor
+        mesh, placements = rules.sharding(spec.axes, spec.shape)
+        local = torch.empty(_local_shape(spec.shape, mesh, placements),
+                            dtype=dt, device="meta")
+        return DTensor.from_local(
+            local, mesh, placements, run_check=False, shape=spec.shape,
+            stride=torch.empty(spec.shape, device="meta").stride())
+    return map_specs(mk, spec_tree)
+
+
+def _local_shape(shape, mesh, placements) -> Tuple[int, ...]:
+    """This rank's shard shape: each mesh dim in order cuts what the ones
+    before it left into ``torch.chunk``-sized pieces (DTensor's rule)."""
+    from torch.distributed.tensor import Shard
+    coord = mesh.get_coordinate()
+    out = list(shape)
+    for mdim, p in enumerate(placements):
+        if isinstance(p, Shard):
+            n, c, size = mesh.size(mdim), coord[mdim], out[p.dim]
+            full = -(-size // n)
+            out[p.dim] = max(0, min(size, full * (c + 1)) - full * c)
+    return tuple(out)
+
+
+def param_shardings(spec_tree, rules):
+    """Each leaf's DTensor placements under ``rules``, one per mesh dim."""
+    return map_specs(lambda s: rules.placements(s.axes, s.shape), spec_tree)
+
+
+def stack_specs(spec_tree, n: int):
+    """Add a leading layer-stack dim (the JAX package's scan-over-layers
+    layout)."""
+    return map_specs(
+        lambda s: PSpec((n,) + s.shape, (None,) + s.axes, s.init, s.scale,
+                        s.dtype), spec_tree)
 
 
 # A normal leaf of more elements than this is drawn slice by slice along its

@@ -21,7 +21,6 @@ graph, and its in-place cache writes stay legal.
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
@@ -33,7 +32,8 @@ from ..device import resolve
 from .blocks import ATTN_KINDS, Ctx, layer_apply, layer_specs, mixer
 from .config import ModelConfig
 from .layers import PSpec, dense, init_tensor, mrope_cos_sin, \
-    mrope_positions, rms_norm, rope_cos_sin, softcap, text_positions
+    mrope_positions, rms_norm, rope_cos_sin, softcap, stack_specs, \
+    text_positions
 
 
 class ParamTree(nn.Module):
@@ -69,14 +69,14 @@ def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
     """Top-level specs plus one spec dict per layer (not stacked)."""
     d = cfg.d_model
     specs: Dict[str, Any] = {
-        "embed": PSpec((cfg.padded_vocab, d), scale=0.02),
-        "final_ln": PSpec((d,), init="zeros"),
+        "embed": PSpec((cfg.padded_vocab, d), ("model", "fsdp"), scale=0.02),
+        "final_ln": PSpec((d,), (None,), init="zeros"),
         "layers": [layer_specs(cfg, i) for i in range(cfg.n_layers)],
     }
     if not cfg.tie_embeddings:
-        specs["unembed"] = PSpec((d, cfg.padded_vocab))
+        specs["unembed"] = PSpec((d, cfg.padded_vocab), ("fsdp", "model"))
     if cfg.input_mode in ("embeds", "mixed"):
-        specs["frontend_proj"] = PSpec((d, d))
+        specs["frontend_proj"] = PSpec((d, d), ("fsdp", "model"))
     return specs
 
 
@@ -304,10 +304,8 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> Dict[str, Any]:
     out: Dict[str, Any] = {}
     if cfg.n_periods > 0:
         out["layers"] = {
-            f"p{p}": {n: dataclasses.replace(s, shape=(cfg.n_periods,)
-                                             + s.shape)
-                      for n, s in mixer(cfg.pattern[p])[2](
-                          cfg, batch, max_len).items()}
+            f"p{p}": stack_specs(
+                mixer(cfg.pattern[p])[2](cfg, batch, max_len), cfg.n_periods)
             for p in range(period)}
     for r in range(cfg.remainder_layers):
         kind = cfg.full_pattern[cfg.n_periods * period + r]

@@ -47,17 +47,17 @@ def moe_specs(cfg: ModelConfig) -> Dict[str, PSpec]:
     d, e = cfg.d_model, cfg.n_experts
     f = cfg.expert_d_ff or cfg.d_ff
     specs = {
-        "router": PSpec((d, e), scale=1.0 / math.sqrt(d)),
-        "w_gate": PSpec((e, d, f)),
-        "w_up": PSpec((e, d, f)),
-        "w_down": PSpec((e, f, d)),
+        "router": PSpec((d, e), (None, "model"), scale=1.0 / math.sqrt(d)),
+        "w_gate": PSpec((e, d, f), ("expert", "fsdp", None)),
+        "w_up": PSpec((e, d, f), ("expert", "fsdp", None)),
+        "w_down": PSpec((e, f, d), ("expert", None, "fsdp")),
     }
     if cfg.n_shared_experts:
         fs = f * cfg.n_shared_experts
         specs.update({
-            "ws_gate": PSpec((d, fs)),
-            "ws_up": PSpec((d, fs)),
-            "ws_down": PSpec((fs, d)),
+            "ws_gate": PSpec((d, fs), ("fsdp", "model")),
+            "ws_up": PSpec((d, fs), ("fsdp", "model")),
+            "ws_down": PSpec((fs, d), ("model", "fsdp")),
         })
     return specs
 
@@ -172,8 +172,17 @@ def _moe_expert_parallel(cfg: ModelConfig, params, xf, gates, ids,
     expert block j to model rank j, the blocks received stacked along the
     capacity axis in source-rank order, (E/ep, ep·C, D); the local experts
     run; the second all-to-all is the inverse.  The combined rows are
-    all-gathered over the token axes, so every rank returns all T rows."""
+    all-gathered over the token axes, so every rank returns all T rows.
+
+    Rules that put "batch" and "expert" on a common mesh dim are refused:
+    the token shard would then name that dim twice."""
     import torch.distributed as dist
+    shared = set(rules.logical["batch"]) & set(rules.logical["expert"])
+    if shared:
+        raise ValueError(
+            f"the rules put 'batch' {rules.logical['batch']} and 'expert' "
+            f"{rules.logical['expert']} on the mesh dims {sorted(shared)}: "
+            f"the expert-parallel MoE needs them apart")
     e, k = cfg.n_experts, cfg.experts_per_token
     el = e // ep
     if params["w_gate"].shape[0] != el:

@@ -5,6 +5,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -502,8 +503,6 @@ def test_train_flops_and_memory_at_full_width():
 
 
 def test_directional_check_holds_the_gradient_and_catches_a_wrong_one():
-    import numpy as np
-
     from repro_torch.configs import get_config
     from repro_torch.launch import steps
     from repro_torch.models import init_model, smoke
@@ -708,3 +707,115 @@ def test_decode_recorder_holds_what_flash_decode_gave_the_engine():
         rows, dict(kw, max_len=4096), seen))
     assert any("largest batch" in f for f in
                chip_smoke.decode_failures(rows, kw, seen + 1))
+
+
+def test_p99_gate_is_serve_benchs_check():
+    """Each protocol's best (least) p99, cornus within 1.02 x 2pc's
+    (benchmarks/serve_bench.py:48, :202-230)."""
+    src = (ROOT / "benchmarks" / "serve_bench.py").read_text()
+    assert "TRIALS = 3" in src and "P99_SLACK = 1.02" in src
+    assert "good = c <= t * P99_SLACK" in src
+    assert (chip_smoke.ENGINE_TRIALS, chip_smoke.P99_SLACK) == (3, 1.02)
+    gate = chip_smoke.p99_gate({"cornus": [36.6, 35.0, 40.0],
+                                "2pc": [34.5, 38.0, 34.4]})
+    assert gate["best_p99_ms"] == {"cornus": 35.0, "2pc": 34.4}
+    assert gate["limit_ms"] == pytest.approx(34.4 * 1.02)
+    assert gate["verdict"] == "ok"                 # 35.0 <= 35.088
+    gate = chip_smoke.p99_gate({"cornus": [35.2], "2pc": [34.4]})
+    assert gate["verdict"] == "TAIL-INVERTED"      # 35.2 > 35.088
+    assert gate["cornus_over_2pc"] == pytest.approx(35.2 / 34.4)
+
+
+# ---------------------------------------------------------------------------
+# Phase 11b: int8 gradient compression in the train step
+# ---------------------------------------------------------------------------
+def _compressed_step(arch):
+    """One compressed step of the smoke config on the CPU under the
+    recorder: (cfg, recorder)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import init_model, smoke
+    from repro_torch.optim import AdamWConfig, CompressionConfig, adamw_init
+    cfg = smoke(get_config(arch))
+    model = init_model(cfg, 0, device="cpu")
+    opt = adamw_init(dict(model.named_parameters()), AdamWConfig())
+    tset = steps.TrainSettings(remat="full", compress=CompressionConfig(),
+                               warmup=2)
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (1, 32)))
+    allreduce, compress = steps._compressed_allreduce, \
+        steps.compress_gradients
+    with chip_smoke.CompressRecorder() as rec:
+        steps.make_train_step(cfg, tset)(model, opt, {"tokens": toks,
+                                                      "labels": toks}, 1)
+    assert steps._compressed_allreduce is allreduce     # unwrapped after
+    assert steps.compress_gradients is compress
+    return cfg, rec
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "jamba-v0.1-52b"])
+def test_compression_rows_hold_the_steps_codes(arch):
+    from repro_torch.convert import jax_layout
+    from repro_torch.optim import CompressionConfig
+    cfg, rec = _compressed_step(arch)
+    names = dict(rec.grads)
+    leaves = list(jax_layout(cfg, names))
+    # One scale per leaf of the JAX tree: llama's 2 layers stack into one
+    # period, so a layer leaf holds both layers' rows.
+    assert sorted(rec.codes) == sorted(leaves)
+    assert len(leaves) < len(names)
+    rows = chip_smoke.compression_rows(cfg, rec.grads, rec.codes,
+                                       CompressionConfig())
+    assert chip_smoke.compression_failures(rows, leaves) == []
+    assert all(r["codes_equal"] and r["scale_equal"] for r in rows)
+    assert max(r["err_over_scale"] for r in rows) <= 0.5 + 2.0 ** -16
+    assert sum(r["elements"] for r in rows) == sum(
+        g.numel() for g in rec.grads.values())
+    # A flipped code, a scale an ulp off and a missing leaf are each
+    # flagged.
+    key = rows[0]["leaf"]
+    q, s = rec.codes[key]
+    q = q.clone()
+    q.view(-1)[0] = q.view(-1)[0] ^ 1
+    s2 = torch.nextafter(s, torch.tensor(float("inf")))
+    bad = chip_smoke.compression_rows(cfg, rec.grads,
+                                      {**rec.codes, key: (q, s2)},
+                                      CompressionConfig())
+    fails = chip_smoke.compression_failures(bad, leaves)
+    assert any("codes differ" in f for f in fails)
+    assert any("scale differs" in f for f in fails)
+    assert any("leaves compressed" in f for f in
+               chip_smoke.compression_failures(rows[1:], leaves))
+
+
+def test_compression_failures_flag_an_error_over_half_a_step():
+    rows = [{"leaf": "w", "codes_equal": True, "scale_equal": True,
+             "scale": 1.0, "max_err": 0.5 + 2.0 ** -15,
+             "err_over_scale": 0.5 + 2.0 ** -15}]
+    assert any("half the scale" in f for f in
+               chip_smoke.compression_failures(rows, ["w"]))
+    rows[0]["err_over_scale"] = 0.5 + 2.0 ** -17
+    assert chip_smoke.compression_failures(rows, ["w"]) == []
+
+
+def test_host_mesh_phase_on_a_gloo_rank():
+    """Phase 11b's mesh half with the CPU's backend: the (1, 1) mesh, the
+    specs placed under each profile, one leaf through ``constrain``, and
+    the group gone after."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_specs
+    out = chip_smoke.host_mesh_phase(torch, torch.device("cpu"))
+    assert not dist.is_initialized()
+    assert out["mesh"] == {"shape": [1, 1], "names": ["data", "model"],
+                           "device_type": "cpu", "backend": "gloo"}
+    n = len(chip_smoke.tree_leaves(model_specs(get_config(chip_smoke.ARCH))))
+    assert n == 2 + 16 * 9          # embed (tied), final_ln; 9 a layer
+    for profile in ("default", "fsdp", "sp"):
+        assert out[profile]["leaves"] == n
+        assert out[profile]["fallbacks"] == 0
+        # every 2-D leaf sharded on both mesh dims, the norms on one
+        assert out[profile]["sharded_mesh_dims"] == 2 * (1 + 16 * 7)
+    assert out["constrain"] == [str(Shard(0))] * 2

@@ -2,8 +2,9 @@
 unless asked.
 
 The port imports neither JAX nor the JAX package ``repro`` (it keeps its own
-copies), and no library attention or ``torch.compile`` stands in for its
-kernels.
+copies), nor ``torch.testing`` (the fake process group that the sharding
+tests build their large meshes on is test-only), and no library attention
+or ``torch.compile`` stands in for its kernels.
 """
 import ast
 from pathlib import Path
@@ -16,6 +17,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 BANNED_ROOTS = ("jax", "jaxlib", "repro")
+BANNED_MODULES = ("torch.testing",)
 
 
 def _imports(tree):
@@ -31,8 +33,25 @@ def _imports(tree):
 def test_no_jax_or_repro_imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     bad = [(line, mod) for line, mod in _imports(tree)
-           if mod.split(".")[0] in BANNED_ROOTS]
+           if mod.split(".")[0] in BANNED_ROOTS
+           or any(mod == m or mod.startswith(m + ".")
+                  for m in BANNED_MODULES)]
+    # ``torch.testing`` reached as an attribute of an imported ``torch``
+    bad += [(node.lineno, "torch.testing") for node in ast.walk(tree)
+            if isinstance(node, ast.Attribute) and node.attr == "testing"
+            and isinstance(node.value, ast.Name) and node.value.id == "torch"]
     assert not bad, f"{path}: imports {bad}"
+
+
+def test_the_scan_catches_torch_testing(tmp_path):
+    """The check above on sources that reach torch.testing each way."""
+    for src in ("import torch.testing\n",
+                "from torch.testing._internal import common_utils\n",
+                "import torch\ntorch.testing.assert_close(1, 1)\n"):
+        path = tmp_path / "m.py"
+        path.write_text(src)
+        with pytest.raises(AssertionError, match="torch.testing"):
+            test_no_jax_or_repro_imports(path)
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
@@ -69,7 +88,7 @@ def test_scan_sees_the_whole_port():
             "core/protocols/cornus_opt1.py", "core/protocols/paxos_commit.py",
             "txn/__init__.py", "txn/threaded.py", "serve/slo.py",
             "serve/session.py", "serve/publisher.py",
-            "serve/engine.py"} <= names
+            "serve/engine.py", "optim/compress.py", "launch/mesh.py"} <= names
     assert (ROOT / "chip_smoke.py").exists()
 
 

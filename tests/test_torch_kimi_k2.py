@@ -130,7 +130,7 @@ def test_only_kimis_expert_leaves_are_drawn_in_slices():
 def test_init_tensor_draws_as_before_below_the_threshold(dtype):
     """A leaf at or under the threshold gets the numbers of one fp32 draw
     of the whole leaf, scaled, then cast, into ``out`` or a new tensor."""
-    spec = layers.PSpec((8, 33, 17))
+    spec = layers.PSpec((8, 33, 17), (None, None, None))
     want = torch.randn(spec.shape, generator=torch.Generator().manual_seed(
         5)).mul_(spec.stddev()).to(dtype)
     got = layers.init_tensor(spec, torch.Generator().manual_seed(5),
@@ -150,7 +150,7 @@ def test_init_tensor_draws_a_huge_leaf_slice_by_slice(dtype, monkeypatch):
     draw's depends on the generator: the CPU's stream is sequential, the
     card's Philox draws are not.)"""
     monkeypatch.setattr(layers, "SLICED_DRAW_ELEMENTS", 1000)
-    spec = layers.PSpec((6, 64, 32))
+    spec = layers.PSpec((6, 64, 32), (None, None, None))
     gen = torch.Generator().manual_seed(7)
     want = torch.stack([torch.randn((64, 32), generator=gen).mul_(
         spec.stddev()).to(dtype) for _ in range(6)])

@@ -89,12 +89,12 @@ def test_attention(case):
 
 def test_init_tensor_distributions():
     gen = torch.Generator().manual_seed(0)
-    w = tl.init_tensor(tl.PSpec((256, 512)), gen, dtype=torch.float32,
+    w = tl.init_tensor(tl.PSpec((256, 512), (None, None)), gen, dtype=torch.float32,
                        device="cpu")
     assert abs(float(w.std()) - 1 / 16) < 2e-3
-    e = tl.init_tensor(tl.PSpec((512, 64), scale=0.02), gen,
+    e = tl.init_tensor(tl.PSpec((512, 64), (None, None), scale=0.02), gen,
                        dtype=torch.float32, device="cpu")
     assert abs(float(e.std()) - 0.02) < 1e-3
-    z = tl.init_tensor(tl.PSpec((8,), init="zeros"), gen,
+    z = tl.init_tensor(tl.PSpec((8,), (None,), init="zeros"), gen,
                        dtype=torch.bfloat16, device="cpu")
     assert z.dtype == torch.bfloat16 and not z.any()

@@ -328,15 +328,30 @@ def test_expert_block_cuts_each_ranks_experts():
 
 
 def test_rules_take_no_override_of_the_logical_names():
-    """``Rules`` builds "batch" and "expert" from the mesh alone, so no
-    caller can put both on one mesh dim."""
-    import dataclasses
+    """What this test guarded: no caller can run the expert-parallel MoE
+    with "batch" and "expert" on one mesh dim.  ``Rules`` takes the
+    reference's override of the logical names again (the sharding
+    profiles need it), so the guard is the MoE's own: it refuses such
+    rules with ``ValueError`` before any collective
+    (tests/test_torch_sharding.py holds the same beside the reference's
+    shard map, on a fake (1, 4) mesh)."""
+    import types
 
-    from repro_torch.launch.sharding import Rules
-    fields = {f.name: f for f in dataclasses.fields(Rules)}
-    assert [n for n, f in fields.items() if f.init] == ["mesh"]
-    with pytest.raises(TypeError):
-        Rules(None, {"expert": ("data",)})
+    from repro_torch.launch.sharding import Rules, use_rules
+    from repro_torch.models.moe import moe_apply, moe_specs
+    mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"),
+                                 shape=(1, 4))
+    assert Rules(mesh, {"expert": ("data",)}).logical["expert"] == \
+        ("data",)
+    rules = Rules(mesh, {"batch": ("data", "model")})
+    assert rules.logical["expert"] == ("model",)
+    assert rules.axis_size("expert") == 4
+    cfg = smoke_cfg()
+    params = {n: torch.randn(s.shape) * s.stddev()
+              for n, s in moe_specs(cfg).items()}
+    with torch.no_grad(), use_rules(rules), \
+            pytest.raises(ValueError, match="needs them apart"):
+        moe_apply(cfg, params, torch.randn(2, 8, cfg.d_model))
 
 
 if __name__ == "__main__":

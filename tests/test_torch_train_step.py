@@ -15,8 +15,16 @@ so no two fp32 implementations meet 2e-5 there.  Its fp32 step is held in
 the loss and its leaves' errors are printed (``FP32_REPORTED``);
 ``tests/test_torch_train_step_f64.py`` runs this file's steps in float64
 in both packages (``--float64``), where every part is held at 2e-5.
+
+The int8-compressed step (``TrainSettings.compress``): a gradient that
+differs by its fp32 rounding between the packages can land on the other
+side of a code's ``.5`` boundary, and Adam turns that flip into a move of
+about lr.  So the whole compressed step of both packages'
+``make_train_step`` is held in float64 (``--float64 ARCH --compress``, run
+by ``tests/test_torch_train_step_f64.py``), and in fp32 the compression and
+the update are held from the JAX gradients carried over, where the codes
+must be equal.
 """
-import dataclasses
 import json
 import sys
 
@@ -33,15 +41,19 @@ from repro.launch import steps as jsteps  # noqa: E402
 from repro.models import config as jmc  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
 from repro.optim import adamw as jadamw  # noqa: E402
+from repro.optim import compress as jcompress  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.ckpt.shards import _flatten  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.models import init_model, smoke  # noqa: E402
-from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
+from repro_torch.optim import (AdamWConfig, CompressionConfig,  # noqa: E402
+                               adamw_init, adamw_update, compress_gradients,
+                               wsd_schedule)
 
 REL = 2e-5
 ARCHS = ["llama3.2-1b", "xlstm-125m", "jamba-v0.1-52b"]
+COMPRESS_ARCHS = ["llama3.2-1b", "jamba-v0.1-52b", "gemma2-2b", "xlstm-125m"]
 # Parts of the fp32 step that are conditioned beyond REL, reported with
 # their numbers instead of held: every part of xLSTM's (see above), and
 # Jamba's parameters and second moment after the first step with lr > 0.
@@ -100,15 +112,18 @@ def jax_keyed(model, tensors):
     return {k[2:]: v for k, v in flat.items() if k.startswith("x/")}
 
 
-def settings(remat="none", dtype=torch.float32):
-    """The trainer's settings in both packages, moments in ``dtype``."""
+def settings(remat="none", dtype=torch.float32, compress=False):
+    """The trainer's settings in both packages, moments in ``dtype``; with
+    ``compress``, int8 gradient compression in both."""
     jdtype = np.float64 if dtype == torch.float64 else np.float32
     jset = jsteps.TrainSettings(remat="none", opt=jadamw.AdamWConfig(
         lr=LR, weight_decay=WD, state_dtype=jdtype), warmup=WARMUP,
-        stable=10**6, decay=1)
+        stable=10**6, decay=1,
+        compress=jcompress.CompressionConfig() if compress else None)
     tset = steps.TrainSettings(remat=remat, opt=AdamWConfig(
         lr=LR, weight_decay=WD, state_dtype=dtype), warmup=WARMUP,
-        stable=10**6, decay=1)
+        stable=10**6, decay=1,
+        compress=CompressionConfig() if compress else None)
     return jset, tset
 
 
@@ -193,6 +208,98 @@ def test_train_step_matches_jax(pair):
     print(f"fp32 {arch}: {json.dumps(report)}")
 
 
+def state_errors(model, opt, jparams, jopt, what):
+    """Each of params, opt/m and opt/v held at REL of the JAX state's."""
+    got = _flatten({"params": model, "opt": {"m": opt["m"], "v": opt["v"]}})
+    want = jflatten({"params": jparams, "opt": {"m": jopt["m"],
+                                                "v": jopt["v"]}})
+    return {part: held(
+        {k: v for k, v in got.items() if k.startswith(part + "/")},
+        {k: v for k, v in want.items() if k.startswith(part + "/")},
+        f"{what} {part}") for part in ("params", "opt/m", "opt/v")}
+
+
+def compressed_step_errors(arch, jcfg, cfg, jparams, dtype=torch.float64,
+                           step=1):
+    """One step of each package's ``make_train_step`` with compression,
+    from the same weights and fresh moments, at step index ``step`` (WSD
+    gives lr 0 at 0): the loss and every leaf of the new state, held at
+    REL."""
+    jset, tset = settings(dtype=dtype, compress=True)
+    model = convert.params_from_numpy(cfg, jflatten(jparams), dtype=dtype,
+                                      device="cpu")
+    opt = adamw_init(dict(model.named_parameters()), tset.opt)
+    jopt = jadamw.adamw_init(jparams, jset.opt)
+    nb = batch(cfg, seed=step)
+    jparams, jopt, jloss = jax.jit(jsteps.make_train_step(jcfg, jset))(
+        jparams, jopt, {k: jnp.asarray(v) for k, v in nb.items()},
+        jnp.asarray(step, jnp.int32))
+    model, opt, loss = steps.make_train_step(cfg, tset)(
+        model, opt, {k: torch.from_numpy(v) for k, v in nb.items()}, step)
+    rel = abs(float(loss) - float(jloss)) / abs(float(jloss))
+    assert rel <= REL, f"{arch} loss {float(loss)} vs {float(jloss)}"
+    assert opt["count"] == int(jopt["count"]) == 1
+    report = {f"loss@{step}": rel}
+    report.update({f"{k}@{step}": v for k, v in state_errors(
+        model, opt, jparams, jopt, f"{arch} compressed step").items()})
+    return report
+
+
+@pytest.mark.parametrize("arch", COMPRESS_ARCHS)
+def test_compressed_update_from_jax_gradients_matches_jax(arch, monkeypatch):
+    """fp32: the JAX gradients of one batch, carried over, through each
+    package's compression and AdamW update at step 1, held against the
+    jitted JAX step.  The codes and scales of every JAX leaf (a leaf
+    stacked over periods has one scale) equal the reference function's bit
+    for bit."""
+    jset, tset = settings(compress=True)
+    jcfg, cfg = jmc.smoke(jget_config(arch)), smoke(get_config(arch))
+    jparams = jlm.init_model(jcfg, jax.random.key(0))
+    nb = batch(cfg, seed=1)
+    jgrads = jax.grad(lambda p: jlm.forward(jcfg, p, {
+        k: jnp.asarray(v) for k, v in nb.items()}, remat="none")[0])(jparams)
+
+    @jax.jit
+    def jupdate(params, opt, grads, step):
+        g = jsteps._compressed_allreduce(grads, jset.compress, None)
+        lr_scale = jsteps.wsd_schedule(step, warmup=jset.warmup,
+                                       stable=jset.stable, decay=jset.decay)
+        return jadamw.adamw_update(g, opt, params, jset.opt, lr_scale)
+
+    jopt = jadamw.adamw_init(jparams, jset.opt)
+    # The reference function as written (eager): under jax.jit XLA turns
+    # the scale's division by qmax into a product by its fp32 reciprocal,
+    # an ulp away in about 5% of leaves (tests/test_torch_compress.py).
+    jq, js, _ = jcompress.compress_gradients(jgrads, jset.compress)
+    jparams2, jopt2 = jupdate(jparams, jopt, jgrads, jnp.asarray(1))
+
+    model = convert.params_from_numpy(cfg, jflatten(jparams), device="cpu")
+    grads = dict(convert.params_from_numpy(cfg, jflatten(jgrads),
+                                           device="cpu").named_parameters())
+    grads = {n: g.detach() for n, g in grads.items()}
+    codes = {}
+
+    def recorded(tree, ccfg):
+        q, s, pre = compress_gradients(tree, ccfg)
+        codes.update({k: (q[k].numpy(), s[k].numpy()) for k in q})
+        return q, s, pre
+
+    monkeypatch.setattr(steps, "compress_gradients", recorded)
+    deq = steps._compressed_allreduce(cfg, grads, tset.compress, None)
+    jq, js = jflatten(jq), jflatten(js)
+    assert sorted(codes) == sorted(jq)
+    for k, (q, s) in codes.items():
+        np.testing.assert_array_equal(q, jq[k], err_msg=k)
+        assert s.tobytes() == np.asarray(js[k]).tobytes(), k
+    opt = adamw_init(dict(model.named_parameters()), tset.opt)
+    adamw_update(deq, opt, dict(model.named_parameters()), tset.opt,
+                 wsd_schedule(1, warmup=tset.warmup, stable=tset.stable,
+                              decay=tset.decay))
+    report = state_errors(model, opt, jparams2, jopt2,
+                          f"{arch} update from JAX gradients")
+    print(f"fp32 {arch} compressed update: {json.dumps(report)}")
+
+
 def widen_fp32_casts():
     """Run both packages in float64: every fp32 cast of their model and
     optimizer code (``jnp.float32``, ``.float()``, ``torch.float32``)
@@ -209,8 +316,8 @@ def widen_fp32_casts():
 
     from repro_torch.kernels import ref
     from repro_torch.models import blocks, layers, moe
-    from repro_torch.optim import adamw, schedules
-    for mod in (blocks, layers, moe, ref, adamw, schedules):
+    from repro_torch.optim import adamw, compress, schedules
+    for mod in (blocks, layers, moe, ref, adamw, compress, schedules):
         mod.torch = Torch64()
 
 
@@ -264,13 +371,6 @@ def test_prefill_and_decode_steps_are_the_models():
     assert torch.isfinite(got).all()
 
 
-def test_compression_is_refused():
-    cfg = smoke(get_config("llama3.2-1b"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        steps.make_train_step(cfg, dataclasses.replace(
-            steps.TrainSettings(), compress=object()))
-
-
 if __name__ == "__main__":          # the float64 run, in its own process
     assert sys.argv[1] == "--float64"
     widen_fp32_casts()
@@ -279,8 +379,14 @@ if __name__ == "__main__":          # the float64 run, in its own process
     jparams = jax.tree_util.tree_map(
         lambda a: a.astype(np.float64),
         jlm.init_model(jcfg, jax.random.key(0)))
-    # One step with lr > 0 from fresh moments: loss, gradients, both
-    # moments and the moved parameters.
-    report = step_errors(arch, jcfg, smoke(get_config(arch)), jparams,
-                         dtype=torch.float64, steps_at=(1,))
+    if sys.argv[3:] == ["--compress"]:
+        # One compressed step of make_train_step at index 1: the loss,
+        # both moments and the moved parameters.
+        report = compressed_step_errors(arch, jcfg, smoke(get_config(arch)),
+                                        jparams)
+    else:
+        # One step with lr > 0 from fresh moments: loss, gradients, both
+        # moments and the moved parameters.
+        report = step_errors(arch, jcfg, smoke(get_config(arch)), jparams,
+                             dtype=torch.float64, steps_at=(1,))
     print(json.dumps({"dtype": "float64", **report}))
