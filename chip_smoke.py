@@ -41,7 +41,9 @@ Phases, each of which must pass (any failure exits non-zero):
      through the attention kernels; then its layers as in phase 9;
  11. train llama3.2-1b at full width (16 layers, fp32 parameters and
      moments, batch 1 x 4,096 tokens of the synthetic zipf stream,
-     remat "full") through ``repro_torch.launch.train.train``, with
+     remat "full") through ``repro_torch.launch.train.train`` (MFU on
+     the model FLOPs without recompute, and the executed FLOPs of the
+     dry run's cost pass, which ``train_flops`` must equal), with
      deterministic algorithms on: the training forward (plain path, with
      grad) against the served forward through the kernels; the gradient
      against a central difference along a random unit direction; a
@@ -133,12 +135,30 @@ Phases, each of which must pass (any failure exits non-zero):
      24c: 24a's cornus run under torch.profiler, its device-busy ms and
      idle share, and the device ms of ``flash_decode`` beside the
      ``index_select`` gathers before it (``device_ms_by_role``);
+ 25. the prefill_32k cell's length on the card: 25a, one counted
+     ``flash_attention`` call (``ops.attention``) at 32,768 causal query
+     tokens per case of LONG_CASES (llama3.2-1b's 32/8 heads of 64 in
+     bf16 and fp32, qwen2-vl-72b's 64/8 of 128 in bf16), each held
+     against ``layers.attention``, which must take
+     ``_chunked_attention`` once and peak below the whole fp32 score
+     tensor (``oracle_failures``: bf16 3e-2, fp32 2e-5, and each
+     block of 1,024 query rows within 1e-2 (bf16) or 2e-5 (fp32) of the
+     oracle relative to its own norm, ``block_rel_err``); each case's
+     kernel, oracle and SDPA (bf16) times with a cold L2 beside its bound;
+     25b, phase 11's training step and phase 5's prefill (4 x 256) and
+     decode (batch 4 against 512 positions) counted by FlopCounterMode on
+     the card (plain path), each equal to the dry run's meta pass
+     (``card_cost``, ``flop_failures``), with the pass's compute and
+     memory terms beside the phases' measured ms; 25c, ``launch.dryrun``
+     for llama3.2-1b on the (16, 16) layout and its
+     ``launch.roofline.table``;
 then one ``{"kernels": [...]}`` line, whose launches are those of every
 served path's counted wave (phases 5, 8, 10, 14, 18, 20, 23), of the
-training runs (phases 11 and 11b) and of the engine runs (phase 24).  The
-expert-parallel MoE (``moe._moe_expert_parallel``) does not run here:
-NCCL puts one rank on a card, and the script needs one card;
-tests/test_torch_moe_ep.py holds it on four CPU ranks.
+training runs (phases 11 and 11b), of the engine runs (phase 24) and of
+phase 25a's counted calls.  The expert-parallel MoE
+(``moe._moe_expert_parallel``) does not run here: NCCL puts one rank on
+a card, and the script needs one card; tests/test_torch_moe_ep.py holds
+it on four CPU ranks.
 The last line is ``{"ok": true, "device": {...}}``.  Without a card, or
 outside a checkout, the script exits non-zero and prints no result.
 """
@@ -307,6 +327,25 @@ TRAIN_RESUME_RTOL = 1e-5  # tests/test_train_loop.py:44-60
 # so under 2^-17 of the scale each.
 COMPRESS_STEP = 1
 COMPRESS_ERR_SLACK = 2.0 ** -16
+# Phase 25: flash_attention at the prefill_32k cell's 32,768 query tokens
+# (src/repro/models/config.py:192), held against the port's
+# ``_chunked_attention``: (tag, Hq, Hkv, hd, dtype), llama3.2-1b's geometry
+# in bf16 and fp32 and qwen2-vl-72b's (hd 128, g 8) in bf16, batch 1.
+LONG_SEQ = 32_768
+LONG_CASES = (("llama3.2-1b", 32, 8, 64, "bfloat16"),
+              ("qwen2-vl-72b", 64, 8, 128, "bfloat16"),
+              ("llama3.2-1b fp32", 32, 8, 64, "float32"))
+# Beside TOL, each long case is held to the largest, over blocks of
+# LONG_BLOCK query rows, of ||kernel - oracle|| / ||oracle||
+# (``block_rel_err``).  A row's output shrinks as about 1/sqrt(its
+# position), to under 1e-2 at the late rows, so an absolute error of 3e-2
+# is set by the first few hundred rows and passes a dropped or misscaled
+# tile late in the chain; the ratio is a block's own scale.  bf16: both
+# sides round to bf16 (2^-8 apart), a few parts in 1e3 over a block; a
+# 128-key tile dropped at the last rows moves them by about 4%.  fp32:
+# the repo's fp32 tolerance, here relative.
+LONG_BLOCK = 1024
+LONG_REL_TOL = {"bfloat16": 1e-2, "float32": 2e-5}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -389,8 +428,46 @@ def mamba_bound(B, S, di, N, dtype="float32"):
     return times[by], by, nbytes, flops
 
 
+def cold_device_ms(torch, flush, fn, iters=30, warmup=3):
+    """Mean device ms of one call of ``fn`` with a cold L2 (as between
+    layers), by CUDA events: before each timed call the card spins for
+    about 1 ms (so the host has queued the call before the card reaches
+    it, and the events bracket device time, not the wrapper's Python) and
+    zeroes ``flush`` (64 MB, evicting the 50 MB L2)."""
+    for _ in range(warmup):
+        fn()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    for s, e in zip(starts, ends):
+        torch.cuda._sleep(2_000_000)
+        flush.zero_()
+        s.record()
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
+
+
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def block_rel_err(got, want, block=LONG_BLOCK) -> float:
+    """The largest, over blocks of ``block`` query rows (dim 1 of a
+    (B, S, H, D) output; the last block may be short), of ||got - want||
+    / ||want|| over the block's rows of every batch and head."""
+    import torch
+    S = want.shape[1]
+
+    def per_row(t):
+        return t.float().square().sum(dim=(0, 2, 3))
+
+    pad = -S % block
+    num, den = (torch.nn.functional.pad(per_row(t), (0, pad))
+                .view(-1, block).sum(1)
+                for t in (got.float() - want.float(), want))
+    return float((num / den.clamp_min(torch.finfo(torch.float32).tiny))
+                 .sqrt().max())
 
 
 def ptxas_report(log_text: str):
@@ -578,15 +655,18 @@ def serve_wave(cfg, model, batch, scfg, device, seed=1):
 # ---------------------------------------------------------------------------
 # Training: the FLOP count, the memory reckoning, the gradient check
 # ---------------------------------------------------------------------------
-def spec_elements(cfg, layers_only=False) -> int:
+def spec_elements(cfg, layers_only=False, matrices_only=False) -> int:
     """Parameter elements in the model's spec leaves (``model_specs``),
-    without allocating; only the layers' with ``layers_only``."""
+    without allocating; only the layers' with ``layers_only``, only the
+    leaves of two dims or more (the ones a matrix product reads) with
+    ``matrices_only``."""
     from repro_torch.models.layers import PSpec
     from repro_torch.models.lm import model_specs
 
     def count(tree):
         if isinstance(tree, PSpec):
-            return math.prod(tree.shape)
+            return math.prod(tree.shape) if len(tree.shape) >= 2 or \
+                not matrices_only else 0
         items = tree.values() if isinstance(tree, dict) else tree
         return sum(count(t) for t in items)
 
@@ -595,22 +675,46 @@ def spec_elements(cfg, layers_only=False) -> int:
 
 
 def train_flops(cfg, batch, seq, remat="full"):
-    """Model FLOPs of one training step, by term: 6·N·T for the
-    parameters' products (2 forward, 4 backward per parameter and token; N
-    counts every leaf, the tied embedding once, as the head's product);
-    the attention's score and value products, 4·hd per (query, key) pair
-    over the full S x S that the plain attention computes, times 3 for the
-    forward and backward; and with remat "full" the layers' forward again
-    (their parameters' 2·N_layers·T and the attention's forward)."""
+    """The FLOPs of one training step's matrix products, by term: 6·N·T
+    for the parameters' products (2 forward, 4 backward per parameter and
+    token; N counts every matrix leaf, the tied embedding once, as the
+    head's product); the attention's score and value products, 4·hd per
+    (query, key) pair over the full S x S that the plain attention
+    computes, times 3 for the forward and backward.  "model" is their sum.
+    With remat "full" torch recomputes each layer's forward in the
+    backward but its last product, a dense FFN's down-projection, whose
+    output the backward does not need (non-reentrant checkpoint stops
+    once every tensor it saved is back): "recompute", and "total" = model +
+    recompute, the products the step executes (the cost pass's count,
+    ``launch.dryrun.cost_pass``)."""
+    from repro_torch.models.blocks import FFN_KINDS
     tokens = batch * seq
     n_attn = sum(k in ("attn", "attn_local") for k in cfg.full_pattern)
     attn_fwd = 4.0 * batch * cfg.n_heads * cfg.hd * seq * seq * n_attn
-    out = {"params": 6.0 * spec_elements(cfg) * tokens,
-           "attention": 3 * attn_fwd,
-           "recompute": (2.0 * spec_elements(cfg, layers_only=True) * tokens
-                         + attn_fwd) if remat == "full" else 0.0}
-    out["total"] = sum(out.values())
+    down = sum(1 for i in range(cfg.n_layers) if not cfg.is_moe_layer(i)
+               and cfg.full_pattern[i] in FFN_KINDS) \
+        * cfg.d_ff * cfg.d_model
+    layers = spec_elements(cfg, layers_only=True, matrices_only=True)
+    out = {"params": 6.0 * spec_elements(cfg, matrices_only=True) * tokens,
+           "attention": 3 * attn_fwd}
+    out["model"] = out["params"] + out["attention"]
+    out["recompute"] = (2.0 * (layers - down) * tokens + attn_fwd) \
+        if remat == "full" else 0.0
+    out["total"] = out["model"] + out["recompute"]
     return out
+
+
+def train_cost(torch):
+    """The dry run's cost pass (``launch.dryrun.cost_pass``, on the meta
+    device) over phase 11's step: llama3.2-1b in fp32, batch TRAIN_BATCH x
+    TRAIN_SEQ, remat "full"."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.models import ShapeConfig
+    return dryrun.cost_pass(
+        get_config(ARCH), ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH,
+                                      "train"),
+        steps.TrainSettings(remat="full", warmup=2), dtype=torch.float32)
 
 
 def train_memory_gb(cfg, batch, seq):
@@ -1125,9 +1229,16 @@ def train_phase(torch, dev):
     free_gb = shutil.disk_usage(store_dir).free / 1e9
     flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
     mem = train_memory_gb(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    # The products the step executes, counted by the dry run's meta pass
+    # (phase 25b holds the card's own count to it).
+    cost = train_cost(torch)
+    executed = cost["flops"]
+    check(flops["total"] == executed,
+          f"train_flops {flops['total']} != the cost pass's {executed}")
     log(f"[train] {cfg.name} at full width: {cfg.n_layers} layers, "
         f"{spec_elements(cfg)} parameter elements, batch {TRAIN_BATCH} x "
-        f"{TRAIN_SEQ} tokens, fp32, remat full; model FLOPs a step "
+        f"{TRAIN_SEQ} tokens, fp32, remat full; FLOPs a step (model = "
+        f"params + attention, total = model + recompute, executed) "
         f"{json.dumps(flops)}; memory reckoned {json.dumps(mem)}; disk free "
         f"under build/ {free_gb:.1f} GB")
     run = RunConfig(arch=ARCH, use_smoke=False, steps=TRAIN_STEPS,
@@ -1256,9 +1367,12 @@ def train_phase(torch, dev):
         "step_ms": step_s * 1e3,
         "step_ms_all": [t * 1e3 for t in golden.step_s],
         "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
-        "model_tflop_per_step": flops["total"] / 1e12,
-        "mfu_fp32_67tflops": flops["total"] / step_s / PEAK_FLOPS["float32"],
-        "bound_ms": flops["total"] / PEAK_FLOPS["float32"] * 1e3,
+        "model_tflop_per_step": flops["model"] / 1e12,
+        "mfu_fp32_67tflops": flops["model"] / step_s / PEAK_FLOPS["float32"],
+        "executed_tflop_per_step": executed / 1e12,
+        "hfu_fp32_67tflops": executed / step_s / PEAK_FLOPS["float32"],
+        "bound_ms": executed / PEAK_FLOPS["float32"] * 1e3,
+        "cost_pass": cost,
         "peak_gb": peak_gb, "step0_checks_peak_gb": step0_peak,
         "reckoned_gb": mem["estimate_gb"],
         "payload_gb_per_host": payload_gb,
@@ -1545,6 +1659,260 @@ def host_mesh_phase(torch, dev):
     check(not dist.is_initialized(), "the process group outlived the phase")
     log(f"[host mesh] {json.dumps(out)}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 25: flash_attention at 32,768 query tokens; the cost pass on the card
+# ---------------------------------------------------------------------------
+class chunk_calls:
+    """Within the block, count the calls of ``layers._chunked_attention``
+    (``layers.attention`` looks it up at call time)."""
+
+    def __init__(self):
+        from repro_torch.models import layers
+        self.layers, self.calls = layers, 0
+
+    def __enter__(self):
+        real = self.real = self.layers._chunked_attention
+
+        def counted(*args, **kwargs):
+            self.calls += 1
+            return real(*args, **kwargs)
+
+        self.layers._chunked_attention = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.layers._chunked_attention = self.real
+
+
+def oracle_failures(err, tol, rel_err, rel_tol, seq, chunked_calls,
+                    peak_bytes, full_scores_bytes):
+    """What phase 25a holds one long-prefill comparison to: the kernel
+    within ``tol`` of the oracle, and within ``rel_tol`` of it in
+    ``block_rel_err``'s measure (``rel_err``), the oracle's sequence above
+    the plain attention's threshold, the switch taken once to the chunked
+    path, and the oracle's peak device memory below the whole fp32 score
+    tensor the unchunked path would build.  Returns the failed checks."""
+    from repro_torch.models import layers
+    out = []
+    if not err <= tol:
+        out.append(f"max abs err {err:g} against the oracle (tol {tol})")
+    if not rel_err <= rel_tol:
+        out.append(f"block relative err {rel_err:g} against the oracle "
+                   f"(tol {rel_tol})")
+    if seq <= layers.CHUNK_THRESHOLD:
+        out.append(f"{seq} query tokens do not pass the threshold "
+                   f"{layers.CHUNK_THRESHOLD}")
+    if chunked_calls != 1:
+        out.append(f"layers.attention took the chunked path "
+                   f"{chunked_calls} times, not once")
+    if not peak_bytes < full_scores_bytes:
+        out.append(f"the oracle's peak {peak_bytes} B is not below the "
+                   f"whole score tensor's {full_scores_bytes} B")
+    return out
+
+
+def flop_failures(card: int, meta: int, what: str):
+    """Phase 25b: the card's count of the step's products must equal the
+    meta pass's exactly."""
+    if card == meta and meta > 0:
+        return []
+    return [f"{what}: {card} FLOPs counted on the card, {meta} on meta"]
+
+
+def long_attention_phase(torch, dev, randn):
+    """Phase 25a: one ``ops.attention`` call (the model's entry to
+    ``flash_attention``) per case of LONG_CASES at LONG_SEQ causal query
+    tokens, counted, each held against ``layers.attention``, which takes
+    ``_chunked_attention`` above its threshold (``oracle_failures``);
+    then each case's kernel, oracle and SDPA times with a cold L2 beside
+    its bound.  Returns (the counted launches, the kernels line's keys)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers
+
+    keys, inputs = {}, {}
+    ops.reset_launch_counts()
+    for i, (tag, hq, hkv, hd, dtype) in enumerate(LONG_CASES):
+        q, k, v = (randn(400 + 10 * i + j, (1, LONG_SEQ, h, hd), dtype)
+                   for j, h in enumerate((hq, hkv, hkv)))
+        inputs[tag] = (q, k, v)
+        with torch.inference_mode():
+            got = ops.attention(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            with chunk_calls() as calls:
+                want = layers.attention(q, k, v, causal=True)
+            torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        err = max_err(got, want)
+        rel = block_rel_err(got, want)
+        full = 4 * hq * LONG_SEQ * LONG_SEQ
+        failed = oracle_failures(err, TOL[dtype], rel, LONG_REL_TOL[dtype],
+                                 LONG_SEQ, calls.calls, peak, full)
+        log(f"[long] {tag}: q (1,{LONG_SEQ},{hq},{hd}) k,v (1,{LONG_SEQ},"
+            f"{hkv},{hd}) {dtype} causal: kernel vs chunked oracle max abs "
+            f"err {err:g} (tol {TOL[dtype]}), block relative err {rel:g} "
+            f"(tol {LONG_REL_TOL[dtype]}, blocks of {LONG_BLOCK} rows); "
+            f"oracle peak {peak / 1e9:.3f} GB against {full / 1e9:.1f} GB "
+            f"of whole fp32 scores; {calls.calls} chunked call")
+        check(not failed and got.dtype == want.dtype,
+              f"{tag} at {LONG_SEQ} tokens: {failed}")
+        keys[f"q32k_{tag.replace(' ', '_')}_max_abs_err"] = err
+        keys[f"q32k_{tag.replace(' ', '_')}_block_rel_err"] = rel
+        del got, want
+    launches = ops.launch_counts()
+    check(launches["flash_attention"] == len(LONG_CASES)
+          and sum(launches.values()) == len(LONG_CASES),
+          f"phase 25a launches {launches}")
+
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+    for tag, hq, hkv, hd, dtype in LONG_CASES:
+        q, k, v = inputs.pop(tag)
+        g = hq // hkv
+        key = f"q32k_{tag.replace(' ', '_')}"
+        bound = attention_bound(1, hq, hkv, LONG_SEQ, LONG_SEQ, hd,
+                                causal=True, dtype=dtype)
+        with torch.inference_mode():
+            ms = cold_device_ms(torch, flush, lambda: ops.attention(
+                q, k, v, causal=True), iters=10, warmup=2)
+            plain_ms = cold_device_ms(torch, flush, lambda: layers.attention(
+                q, k, v, causal=True), iters=2, warmup=1)
+            lib_ms = None
+            if dtype == "bfloat16":
+                qh = q.transpose(1, 2).contiguous()
+                kh, vh = (t.transpose(1, 2).repeat_interleave(g, dim=1)
+                          .contiguous() for t in (k, v))
+                lib_ms = cold_device_ms(
+                    torch, flush, lambda: F.scaled_dot_product_attention(
+                        qh, kh, vh, is_causal=True), iters=10, warmup=2)
+                del qh, kh, vh
+        keys.update({
+            f"{key}_ms": ms, f"{key}_plain_ms": plain_ms,
+            f"{key}_library_ms": lib_ms, f"{key}_bound_ms": bound[0],
+            f"{key}_bound_by": bound[1], f"{key}_bytes": bound[2],
+            f"{key}_flops": bound[3],
+            f"{key}_shape": f"q (1,{hq},{LONG_SEQ},{hd}) k,v (1,{hkv},"
+                            f"{LONG_SEQ},{hd}) {dtype} causal"})
+        lib = "none (fp32)" if lib_ms is None else f"{lib_ms:.4f} ms"
+        log(f"[long] {tag}: flash_attention {ms:.4f} ms, bound "
+            f"{bound[0]:.4f} ms ({bound[1]}), chunked oracle {plain_ms:.1f} "
+            f"ms, SDPA {lib}")
+        del q, k, v
+    del flush
+    return launches, keys
+
+
+def on_card(torch, tree, cfg, dev, gen):
+    """A struct tree of ``launch.dryrun.step_specs`` as tensors on the
+    card: token ids drawn below the vocabulary, the rest zeros (the
+    optimizer's moments and the cache start at zero); ints stay."""
+    if isinstance(tree, dict):
+        return {k: on_card(torch, v, cfg, dev, gen) for k, v in tree.items()}
+    if isinstance(tree, int):
+        return tree
+    if tree.dtype == torch.int32:
+        return torch.randint(0, cfg.vocab_size, tuple(tree.shape),
+                             generator=gen, device=dev, dtype=torch.int32)
+    return torch.zeros(tuple(tree.shape), dtype=tree.dtype, device=dev)
+
+
+def card_cost(torch, dev, cfg, shape, settings, dtype, meta=None):
+    """(the products the step counts on ``dev``, the meta pass): the
+    step of ``shape``'s kind run once on the card under FlopCounterMode,
+    on a seeded model in ``dtype`` on the plain path, with inputs of
+    ``input_specs``' shapes; and ``dryrun.cost_pass`` of the same, unless
+    the caller has it (``meta``)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import dryrun
+    from repro_torch.models import init_model
+    if meta is None:
+        meta = dryrun.cost_pass(cfg, shape, settings, dtype=dtype)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    model = init_model(cfg, 0, dtype=dtype, device=dev)
+    model.plain_kernels = True
+    specs = on_card(torch, dryrun.step_specs(cfg, shape, settings, dtype),
+                    cfg, dev, gen)
+    specs.pop("params")
+    fn, args = dryrun.step_call(cfg, shape, settings, specs, model)
+    counter = FlopCounterMode(display=False)
+    with counter:
+        out = fn(*args)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    check(all(bool(torch.isfinite(t).all()) for t in out
+              if isinstance(t, torch.Tensor)), f"{shape.name} outputs finite")
+    card = int(counter.get_total_flops())
+    del model, specs, args, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return card, meta
+
+
+def cost_vs_card_phase(torch, dev, card_name, train_out, served):
+    """Phase 25b: phase 11's step and phase 5's served shapes counted on
+    the card and on meta (``flop_failures``), each cost pass's compute and
+    memory terms over the peaks beside the measured ms.  The train row
+    takes phase 11's own cost pass (``train_out["cost_pass"]``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import ShapeConfig
+    cfg = get_config(ARCH)
+    rows = []
+    for what, shape, settings, dtype, measured, meta in (
+            ("train (phase 11)", ShapeConfig("train", TRAIN_SEQ,
+                                             TRAIN_BATCH, "train"),
+             steps.TrainSettings(remat="full", warmup=2), "float32",
+             ("step_ms", train_out["step_ms"]), train_out["cost_pass"]),
+            ("prefill (phase 5)", ShapeConfig("prefill", PROMPT, BATCH,
+                                              "prefill"),
+             steps.TrainSettings(), "bfloat16",
+             ("prefill_ms", served[ARCH]["prefill_ms"]), None),
+            ("decode (phase 5)", ShapeConfig("decode", MAX_LEN, BATCH,
+                                             "decode"),
+             steps.TrainSettings(), "bfloat16",
+             ("decode_ms_per_token", served[ARCH]["decode_ms_per_token"]),
+             None)):
+        card, meta = card_cost(torch, dev, cfg, shape, settings,
+                               getattr(torch, dtype), meta)
+        failed = flop_failures(card, meta["flops"], what)
+        row = {"what": what, "shape": f"{shape.global_batch} x "
+               f"{shape.seq_len} {shape.kind}", "dtype": dtype,
+               "card_flops": card, "meta_flops": meta["flops"],
+               "meta_flops_by_op": meta["flops_by_op"],
+               "meta_unfused_bytes": meta["bytes"],
+               "meta_temp_bytes": meta["temp_bytes"],
+               "compute_ms": meta["flops"] / PEAK_FLOPS[dtype] * 1e3,
+               "memory_ms": meta["bytes"] / HBM_BYTES_PER_S * 1e3,
+               measured[0]: measured[1], "meta_pass_s": meta["seconds"]}
+        rows.append(row)
+        log(f"[cost] {json.dumps(row)}")
+        check(not failed, f"{failed}")
+    log(f"[cost] terms over {card_name}'s published peaks (989 TFLOP/s "
+        f"bf16, 67 TFLOP/s fp32, 3.35 TB/s); memory_ms counts every aten "
+        f"op's unfused bytes")
+    return rows
+
+
+def dryrun_layout_phase(torch):
+    """Phase 25c: ``launch.dryrun`` for llama3.2-1b at the four shapes on
+    the (16, 16) layout (records under build/dryrun_torch), and
+    ``launch.roofline.table`` of them.  It needs no card, and leaves no
+    process group behind."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun, roofline
+    out = ROOT / "build" / "dryrun_torch"
+    shutil.rmtree(out, ignore_errors=True)
+    rc = dryrun.main(["--arch", ARCH, "--mesh", "single", "--out", str(out)])
+    check(rc == 0 and not dist.is_initialized(),
+          f"the dry run of {ARCH} failed or left a process group")
+    log(f"[dryrun] {ARCH} on the (16, 16) layout, bf16 peak:\n"
+        f"{roofline.table(str(out))}")
 
 
 def main() -> int:
@@ -2075,6 +2443,8 @@ def run(torch) -> int:
                 "device_activities": len(acts),
                 "top_device_ms": [[n[:80], ms] for n, ms in top]}
 
+    served = {}     # each served path's numbers, by config name
+
     def serve_phase(cfg, batch, want_launches, parity, profile=False):
         """One counted wave of ``serve_wave`` over the prompt ``batch``
         (launch counters from 0), then the median of three more waves and
@@ -2144,6 +2514,7 @@ def run(torch) -> int:
         if profile:
             serve.update(profiled_wave(wave))
         log(f"[serve] {json.dumps(serve)}")
+        served[cfg.name] = serve
         return model, launches
 
     model, serve_launches = serve_phase(cfg, prompts, wave_launches(cfg),
@@ -2217,32 +2588,18 @@ def run(torch) -> int:
     torch.cuda.empty_cache()
 
     # -- 11. train llama3.2-1b at full width ----------------------------------
-    _, train_launches = train_phase(torch, dev)
+    train_out, train_launches = train_phase(torch, dev)
     # -- 11b. the int8-compressed step beside the plain one; the host mesh ---
     _, compress_launches = compress_phase(torch, dev, card)
     host_mesh_phase(torch, dev)
 
     # -- 12. kernel times at the serving shapes -------------------------------
-    # Before each timed call the card spins for about 1 ms (so the host has
-    # queued the call before the card reaches it, and the events bracket
-    # device time, not the wrapper's Python) and zeroes 64 MB (evicting the
-    # 50 MB L2, as the layers between two kernel calls do).
+    # Timed with a cold L2, as the layers between two kernel calls leave it
+    # (``cold_device_ms``).
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
 
     def cold_ms(fn, iters=30, warmup=3):
-        """Mean device ms of one call with a cold L2 (as between layers)."""
-        for _ in range(warmup):
-            fn()
-        starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
-        ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
-        for s, e in zip(starts, ends):
-            torch.cuda._sleep(2_000_000)
-            flush.zero_()
-            s.record()
-            fn()
-            e.record()
-        torch.cuda.synchronize()
-        return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
+        return cold_device_ms(torch, flush, fn, iters, warmup)
 
     kv_len = PROMPT + NEW // 2      # the middle of the served decode run
     # What the same method reads for one trivial kernel: the launch and
@@ -2623,6 +2980,20 @@ def run(torch) -> int:
     decode_entry["engine_max_abs_err"] = engine_err
     decode_entry["max_abs_err"] = max(decode_entry["max_abs_err"],
                                       engine_err)
+
+    # -- 25. flash_attention at 32,768 query tokens; the cost pass ----------
+    t_long = time.perf_counter()
+    by_path["flash_attention 32k"], long_keys = long_attention_phase(
+        torch, dev, randn)
+    fa_entry = next(e for e in kernels if e["name"] == "flash_attention")
+    fa_entry.update(long_keys)
+    for key, fp32 in (("max_abs_err", False), ("max_abs_err_fp32", True)):
+        fa_entry[key] = max([fa_entry[key]] + [
+            v for k, v in long_keys.items()
+            if k.endswith("max_abs_err") and ("fp32" in k) == fp32])
+    cost_vs_card_phase(torch, dev, card, train_out, served)
+    dryrun_layout_phase(torch)
+    log(f"[long] phase 25 {time.perf_counter() - t_long:.1f} s")
 
     for entry in kernels:
         per = {path: c[entry["name"]] for path, c in by_path.items()}

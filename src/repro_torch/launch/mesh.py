@@ -10,6 +10,11 @@ program of a cluster, so the caller gives it the address, world size and
 rank).  Both default to the card, as every entry point of the port does.
 The reference's ``auto_axis_types_kwargs`` shims jax versions without
 ``AxisType``; a DeviceMesh has no axis types, so it has no counterpart.
+
+``make_layout_mesh`` gives the production layouts with no process group
+of their size, for the dry run (``launch.dryrun``), which places meta
+tensors and so needs the mesh's shape, names and this rank's coordinate,
+and no communicator.
 """
 from __future__ import annotations
 
@@ -56,3 +61,41 @@ def make_host_mesh(model: int = 1, device_type: str = "cuda") -> "DeviceMesh":
                          f"{world} ranks")
     return _mesh(device_type, (max(world, 1) // model, model),
                  ("data", "model"))
+
+
+def make_layout_mesh(*, multi_pod: bool = False) -> "DeviceMesh":
+    """The production layout as a ``layout_mesh``: (16, 16) over ("data",
+    "model"), or (2, 16, 16) over ("pod", "data", "model")."""
+    if multi_pod:
+        return layout_mesh((2, 16, 16), ("pod", "data", "model"))
+    return layout_mesh((16, 16), ("data", "model"))
+
+
+def layout_mesh(shape: Tuple[int, ...],
+                names: Tuple[str, ...]) -> "DeviceMesh":
+    """A CPU DeviceMesh of ``shape`` built over a process group of one: no
+    backend is created for the mesh's dims, so nothing of the mesh's size
+    is initialized, and this process is rank 0 of the layout.  Without an
+    initialized group it starts a one-rank gloo group on an in-memory
+    ``HashStore`` for the build and destroys it before it returns: the
+    mesh keeps its shape, names and coordinate, which is all that
+    ``Rules`` and the meta DTensors read, and the process is left as it
+    was found.  The route rests on DeviceMesh's private
+    ``_init_backend=False`` argument (checked by
+    tests/test_torch_dryrun.py)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    started = not dist.is_initialized()
+    if started:
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                                world_size=1)
+    try:
+        if dist.get_rank() != 0:
+            raise RuntimeError("a layout mesh is built on rank 0 only")
+        return DeviceMesh("cpu",
+                          torch.arange(math.prod(shape)).reshape(shape),
+                          mesh_dim_names=tuple(names), _init_backend=False)
+    finally:
+        if started:
+            dist.destroy_process_group()

@@ -11,9 +11,11 @@ Conventions:
   * The JAX package's activation annotations (``constrain``) are
     identities on one device; the port's model code does not call them.
   * ``attention`` is the plain, exact attention in the model's
-    ``(B, S, N, hd)`` layout.  The kernels in ``repro_torch.kernels`` compute
-    the same function on the card; the JAX package's chunked variant, which
-    only bounds memory above 8192 tokens, is left to the kernels.
+    ``(B, S, N, hd)`` layout.  Above ``CHUNK_THRESHOLD`` query tokens it
+    takes ``_chunked_attention``, the JAX package's online-softmax form
+    over query and key chunks, so a 32k-token prefill never builds the
+    O(S²) fp32 score tensor.  The kernels in ``repro_torch.kernels``
+    compute the same function on the card.
 """
 from __future__ import annotations
 
@@ -25,6 +27,10 @@ from typing import Any, Callable, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+CHUNK_THRESHOLD = 8_192   # switch to chunked attention above this seq len
+Q_CHUNK = 2_048
+KV_CHUNK = 2_048
 
 
 # ---------------------------------------------------------------------------
@@ -55,24 +61,30 @@ def map_specs(fn: Callable[[PSpec], Any], tree):
     return [map_specs(fn, v) for v in tree]
 
 
+def struct(shape, dtype, rules, axes):
+    """A tensor of ``shape`` on the ``meta`` device (nothing allocated):
+    with ``rules``, a DTensor with that global shape, placed over
+    ``rules.mesh`` as ``rules.sharding(axes, shape)`` says, whose local
+    tensor is this rank's shard (a ragged last shard where the axes do not
+    divide the dim, as ``Shard`` cuts it).  The port's counterpart of a
+    ``jax.ShapeDtypeStruct`` with a ``NamedSharding``."""
+    shape = tuple(shape)
+    if rules is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
+    from torch.distributed.tensor import DTensor
+    mesh, placements = rules.sharding(axes, shape)
+    local = torch.empty(_local_shape(shape, mesh, placements), dtype=dtype,
+                        device="meta")
+    return DTensor.from_local(
+        local, mesh, placements, run_check=False, shape=shape,
+        stride=torch.empty(shape, device="meta").stride())
+
+
 def param_structs(spec_tree, rules, dtype=torch.bfloat16):
-    """Each leaf as a tensor on the ``meta`` device (nothing allocated):
-    with ``rules``, a DTensor with the global shape, placed over
-    ``rules.mesh`` as ``rules.sharding`` says, whose local tensor is this
-    rank's shard (a ragged last shard where the axes do not divide the
-    dim, as ``Shard`` cuts it)."""
-    def mk(spec: PSpec):
-        dt = spec.dtype or dtype
-        if rules is None:
-            return torch.empty(spec.shape, dtype=dt, device="meta")
-        from torch.distributed.tensor import DTensor
-        mesh, placements = rules.sharding(spec.axes, spec.shape)
-        local = torch.empty(_local_shape(spec.shape, mesh, placements),
-                            dtype=dt, device="meta")
-        return DTensor.from_local(
-            local, mesh, placements, run_check=False, shape=spec.shape,
-            stride=torch.empty(spec.shape, device="meta").stride())
-    return map_specs(mk, spec_tree)
+    """Each leaf as a ``struct``: a pinned ``PSpec.dtype`` (the recurrent
+    states' fp32) wins over ``dtype``."""
+    return map_specs(lambda s: struct(s.shape, s.dtype or dtype, rules,
+                                      s.axes), spec_tree)
 
 
 def _local_shape(shape, mesh, placements) -> Tuple[int, ...]:
@@ -252,12 +264,18 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     GQA by head grouping; ``window`` applies with ``causal`` only (as in the
     JAX package); ``q_offset`` is the absolute position of q[0]; ``kv_len``
-    masks keys at or past it (decode against a preallocated cache).
+    masks keys at or past it (decode against a preallocated cache).  Above
+    ``CHUNK_THRESHOLD`` query tokens it takes ``_chunked_attention``;
+    decode (one query token) never does.
     """
     B, S, Nq, hd = q.shape
     T, Nkv = k.shape[1], k.shape[2]
     G = Nq // Nkv
     qg = (q * (1.0 / math.sqrt(hd))).reshape(B, S, Nkv, G, hd)
+    if S > CHUNK_THRESHOLD:
+        return _chunked_attention(qg, k, v, causal=causal, window=window,
+                                  cap=cap, q_offset=q_offset, kv_len=kv_len
+                                  ).reshape(B, S, Nq, hd)
     s = torch.einsum("bsngh,btnh->bngst", qg.float(), k.float())
     s = softcap(s, cap)
     q_pos = torch.arange(S, device=q.device) + q_offset
@@ -269,6 +287,57 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bngst,btnh->bsngh", p.to(v.dtype), v)
     return o.reshape(B, S, Nq, hd)
+
+
+def _chunked_attention(qg, k, v, *, causal, window, cap, q_offset, kv_len):
+    """Exact attention over query chunks x key chunks with an fp32 running
+    (max, sum, acc): the JAX package's ``_chunked_attention``, its two
+    ``lax.scan``s as Python loops, the same arithmetic in the same order.
+    qg: (B, S, Nkv, G, hd), already scaled; k, v: (B, T, Nkv, hd).  Never
+    holds more than one (qc x kc) block of scores.  The chunk sizes are
+    read from the module at call time."""
+    B, S, Nkv, G, hd = qg.shape
+    T = k.shape[1]
+    qc, kc = min(Q_CHUNK, S), min(KV_CHUNK, T)
+    n_q, n_k = -(-S // qc), -(-T // kc)
+    qg = F.pad(qg, (0, 0, 0, 0, 0, 0, 0, n_q * qc - S))
+    kp = F.pad(k, (0, 0, 0, 0, 0, n_k * kc - T))
+    vp = F.pad(v, (0, 0, 0, 0, 0, n_k * kc - T))
+    valid_t = T if kv_len is None else kv_len
+    dev = qg.device
+    outs = []
+    for qi in range(n_q):
+        qblk = qg[:, qi * qc:(qi + 1) * qc].float()
+        q_pos = qi * qc + torch.arange(qc, device=dev) + q_offset
+        m = torch.full((B, Nkv, G, qc), -math.inf, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((B, Nkv, G, qc), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, Nkv, G, qc, hd), dtype=torch.float32,
+                          device=dev)
+        for ki in range(n_k):
+            kblk = kp[:, ki * kc:(ki + 1) * kc]
+            vblk = vp[:, ki * kc:(ki + 1) * kc]
+            k_pos = ki * kc + torch.arange(kc, device=dev)
+            s = torch.einsum("bsngh,btnh->bngst", qblk, kblk.float())
+            s = softcap(s, cap)
+            keep = k_pos[None, :] < valid_t
+            if causal:
+                keep = keep & (k_pos[None, :] <= q_pos[:, None])
+                if window > 0:
+                    keep = keep & ((q_pos[:, None] - k_pos[None, :]) < window)
+            else:
+                keep = keep.expand(qc, kc)
+            s = s.masked_fill(~keep, -1e30)
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            pv = torch.einsum("bngst,btnh->bngsh", p.to(vblk.dtype), vblk)
+            acc = acc * alpha[..., None] + pv
+            m = m_new
+        out = acc / torch.clamp_min(l, 1e-30)[..., None]
+        outs.append(out.permute(0, 3, 1, 2, 4))          # (B,qc,Nkv,G,hd)
+    return torch.cat(outs, dim=1)[:, :S].to(v.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -140,52 +140,24 @@ class LM(nn.Module):
         return text_positions(B, S, device=device)
 
     def rope(self, positions) -> Dict[float, Any]:
-        """{theta: rope tables of ``positions``}, one entry per theta that
-        the attention layers use (``kind_theta_window``); empty when the
-        model has no attention (only attention layers rotate).  Under
-        M-RoPE the tables are ``mrope_cos_sin``'s of the (3, B, S)
-        positions."""
-        cfg = self.cfg
-        thetas = {kind_theta_window(cfg, k)[0] for k in cfg.pattern
-                  if k in ATTN_KINDS}
-        if cfg.mrope:
-            return {th: mrope_cos_sin(positions, cfg.hd, th,
-                                      cfg.mrope_sections)
-                    for th in sorted(thetas)}
-        return {th: rope_cos_sin(positions, cfg.hd, th)
-                for th in sorted(thetas)}
+        """``rope_tables`` of this model."""
+        return rope_tables(self.cfg, positions)
 
     def layer_ctx(self, kind: str, ropes, **kw) -> Ctx:
-        """The ``Ctx`` of a layer of ``kind`` (the JAX package's
-        ``_layer_ctx``): its window and the rope tables of its theta from
-        ``ropes`` (``LM.rope``); ``kw`` are the other ``Ctx`` fields."""
-        theta, window = kind_theta_window(self.cfg, kind)
-        return Ctx(rope=ropes.get(theta), window=window, **kw)
+        """``layer_ctx`` of this model."""
+        return layer_ctx(self.cfg, kind, ropes, **kw)
 
     def run_layers(self, x, *, mode: str, positions, cache=None,
                    pos_offset: int = 0, max_len: int = 0,
                    remat: str = "none", plain: Optional[bool] = None):
-        """Apply every layer; writes the cache in place.  Returns (x, aux).
-        ``plain`` overrides ``plain_kernels``; ``remat`` recomputes each
-        layer in the backward (``_remat_wrap``)."""
-        cfg = self.cfg
-        aux_total = 0.0
-        ropes = self.rope(positions)
-        for li, kind in enumerate(cfg.full_pattern):
-            ctx = self.layer_ctx(
-                kind, ropes, mode=mode,
-                cache=None if cache is None else layer_cache(cfg, cache, li),
-                pos_offset=pos_offset, max_len=max_len,
-                plain=self.plain_kernels if plain is None else plain)
-
-            def layer(h, li=li, kind=kind, ctx=ctx):
-                h, _, a = layer_apply(cfg, kind, layer_is_moe(cfg, li),
-                                      self.layers[li], h, ctx)
-                return h, a
-
-            x, a = _remat_wrap(layer, remat)(x)
-            aux_total = aux_total + a
-        return x, aux_total
+        """``run_layers`` over this model's layers; ``plain`` overrides
+        ``plain_kernels``."""
+        return run_layers(self.cfg, self.layers, x, mode=mode,
+                          positions=positions, cache=cache,
+                          pos_offset=pos_offset, max_len=max_len,
+                          remat=remat,
+                          plain=self.plain_kernels if plain is None
+                          else plain)
 
     def _head(self, x):
         cfg = self.cfg
@@ -251,6 +223,32 @@ class LM(nn.Module):
         return self._head(x), cache
 
 
+def run_layers(cfg: ModelConfig, layers, x, *, mode: str, positions,
+               cache=None, pos_offset: int = 0, max_len: int = 0,
+               remat: str = "none", plain: bool = False):
+    """Apply every layer of ``cfg.full_pattern``, ``layers[li]`` holding
+    layer li's parameters (a ``ParamTree`` or a dict of the same nesting);
+    writes the cache (``init_cache``'s layout) in place.  Returns (x,
+    aux).  ``remat`` recomputes each layer in the backward
+    (``_remat_wrap``)."""
+    aux_total = 0.0
+    ropes = rope_tables(cfg, positions)
+    for li, kind in enumerate(cfg.full_pattern):
+        ctx = layer_ctx(
+            cfg, kind, ropes, mode=mode,
+            cache=None if cache is None else layer_cache(cfg, cache, li),
+            pos_offset=pos_offset, max_len=max_len, plain=plain)
+
+        def layer(h, li=li, kind=kind, ctx=ctx):
+            h, _, a = layer_apply(cfg, kind, layer_is_moe(cfg, li),
+                                  layers[li], h, ctx)
+            return h, a
+
+        x, a = _remat_wrap(layer, remat)(x)
+        aux_total = aux_total + a
+    return x, aux_total
+
+
 # ---------------------------------------------------------------------------
 # Rematerialization (the counterpart of the JAX package's ``lm._remat_wrap``)
 # ---------------------------------------------------------------------------
@@ -311,6 +309,46 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> Dict[str, Any]:
         kind = cfg.full_pattern[cfg.n_periods * period + r]
         out[f"rem{r}"] = mixer(kind)[2](cfg, batch, max_len)
     return out
+
+
+def named_param_specs(cfg: ModelConfig) -> Dict[str, PSpec]:
+    """{parameter name: PSpec} under the names ``LM.named_parameters``
+    gives (``layers.{i}.mixer.wq``), without building the model."""
+    out: Dict[str, PSpec] = {}
+
+    def walk(prefix: str, tree):
+        for name, s in tree.items():
+            if isinstance(s, PSpec):
+                out[prefix + name] = s
+            else:
+                walk(f"{prefix}{name}.", s)
+
+    specs = model_specs(cfg)
+    walk("", {k: v for k, v in specs.items() if k != "layers"})
+    for i, layer in enumerate(specs["layers"]):
+        walk(f"layers.{i}.", layer)
+    return out
+
+
+def rope_tables(cfg: ModelConfig, positions) -> Dict[float, Any]:
+    """{theta: rope tables of ``positions``}, one entry per theta that the
+    attention layers use (``kind_theta_window``); empty when the model has
+    no attention (only attention layers rotate).  Under M-RoPE the tables
+    are ``mrope_cos_sin``'s of the (3, B, S) positions."""
+    thetas = {kind_theta_window(cfg, k)[0] for k in cfg.pattern
+              if k in ATTN_KINDS}
+    if cfg.mrope:
+        return {th: mrope_cos_sin(positions, cfg.hd, th, cfg.mrope_sections)
+                for th in sorted(thetas)}
+    return {th: rope_cos_sin(positions, cfg.hd, th) for th in sorted(thetas)}
+
+
+def layer_ctx(cfg: ModelConfig, kind: str, ropes, **kw) -> Ctx:
+    """The ``Ctx`` of a layer of ``kind`` (the JAX package's
+    ``_layer_ctx``): its window and the rope tables of its theta from
+    ``ropes`` (``rope_tables``); ``kw`` are the other ``Ctx`` fields."""
+    theta, window = kind_theta_window(cfg, kind)
+    return Ctx(rope=ropes.get(theta), window=window, **kw)
 
 
 def kind_theta_window(cfg: ModelConfig, kind: str):

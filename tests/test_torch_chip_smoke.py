@@ -476,25 +476,34 @@ def test_layer_parity_holds_kimi_k2(monkeypatch):
 # ---------------------------------------------------------------------------
 def test_train_flops_and_memory_at_full_width():
     """llama3.2-1b at full width, batch 1 x 4,096 tokens, remat "full":
-    about 47 TFLOP a step (30.4 + 6.6 + 10.2), 0.70 s at 67 TFLOP/s fp32;
-    19.8 GB of parameters, gradients and moments, 2.1 GB of one layer's
-    fp32 scores and 2.1 GB of fp32 logits."""
+    36.97 TFLOP of model products a step (30.37 + 6.60) and 7.97 of
+    recompute (each layer's forward but its FFN down-projection, which
+    torch does not rerun), 44.94 executed, the count the dry run's cost
+    pass takes (phase 25b holds the card's count to it), 0.67 s at 67
+    TFLOP/s fp32; 19.8 GB of parameters, gradients and moments, 2.1 GB of
+    one layer's fp32 scores and 2.1 GB of fp32 logits."""
     from repro_torch.configs import get_config
     cfg = get_config("llama3.2-1b")
     assert chip_smoke.spec_elements(cfg) == 1_235_814_400
     assert chip_smoke.spec_elements(cfg) != cfg.param_count() \
         == 1_235_847_168
+    # The 33 norm weights of 2,048 enter no product.
+    matrices = 1_235_814_400 - 33 * 2048
+    assert chip_smoke.spec_elements(cfg, matrices_only=True) == matrices
     f = chip_smoke.train_flops(cfg, 1, 4096)
-    assert f["params"] == 6 * 1_235_814_400 * 4096
+    assert f["params"] == 6 * matrices * 4096
     assert f["attention"] == 3 * 4 * 32 * 64 * 4096 ** 2 * 16
-    assert f["recompute"] == 2 * (1_235_814_400 - 128_256 * 2048 - 2048) \
+    assert f["model"] == f["params"] + f["attention"] == 36_966_783_516_672
+    assert f["recompute"] == 2 * (matrices - 128_256 * 2048
+                                  - 16 * 8192 * 2048) \
         * 4096 + 4 * 32 * 64 * 4096 ** 2 * 16
     assert (f["params"] / 1e12, f["attention"] / 1e12,
-            f["recompute"] / 1e12) == pytest.approx((30.37, 6.60, 10.17),
+            f["recompute"] / 1e12) == pytest.approx((30.37, 6.60, 7.97),
                                                     abs=0.01)
-    assert f["total"] / 67e12 == pytest.approx(0.7036, abs=1e-3)
-    assert chip_smoke.train_flops(cfg, 1, 4096, remat="none")["recompute"] \
-        == 0
+    assert f["total"] == f["model"] + f["recompute"] == 44_938_242_818_048
+    assert f["total"] / 67e12 == pytest.approx(0.6707, abs=1e-3)
+    none = chip_smoke.train_flops(cfg, 1, 4096, remat="none")
+    assert none["recompute"] == 0 and none["total"] == none["model"]
     m = chip_smoke.train_memory_gb(cfg, 1, 4096)
     assert m["state_gb"] == pytest.approx(19.77, abs=0.01)
     assert m["scores_gb"] == pytest.approx(2.147, abs=1e-3)
@@ -819,3 +828,156 @@ def test_host_mesh_phase_on_a_gloo_rank():
         # every 2-D leaf sharded on both mesh dims, the norms on one
         assert out[profile]["sharded_mesh_dims"] == 2 * (1 + 16 * 7)
     assert out["constrain"] == [str(Shard(0))] * 2
+
+
+# ---------------------------------------------------------------------------
+# Phase 25: the long prefill against the chunked oracle; the cost pass
+# ---------------------------------------------------------------------------
+def test_train_flops_is_the_cost_pass_of_phase_11s_step():
+    """The executed count phase 11 prints is the meta pass's, the one the
+    card's count must equal in phase 25b."""
+    from repro_torch.configs import get_config
+    cost = chip_smoke.train_cost(torch)
+    f = chip_smoke.train_flops(get_config("llama3.2-1b"), chip_smoke.
+                               TRAIN_BATCH, chip_smoke.TRAIN_SEQ)
+    assert cost["flops"] == f["total"] == 44_938_242_818_048
+    assert set(cost["flops_by_op"]) == {"aten.mm", "aten.bmm"}
+
+
+def test_oracle_failures_flag_each_fault():
+    ok = dict(err=1e-3, tol=3e-2, rel_err=3e-3, rel_tol=1e-2, seq=32768,
+              chunked_calls=1, peak_bytes=5e9,
+              full_scores_bytes=4 * 32 * 32768 ** 2)
+    assert chip_smoke.oracle_failures(**ok) == []
+    for change, words in ((dict(err=0.5), "max abs err"),
+                          (dict(err=float("nan")), "max abs err"),
+                          (dict(rel_err=0.04), "block relative err"),
+                          (dict(rel_err=float("nan")), "block relative err"),
+                          (dict(seq=8192), "threshold"),
+                          (dict(chunked_calls=0), "chunked path"),
+                          (dict(peak_bytes=2 ** 40), "peak")):
+        failed = chip_smoke.oracle_failures(**{**ok, **change})
+        assert len(failed) == 1 and words in failed[0], (change, failed)
+
+
+def test_oracle_failures_on_cpu_tensors(monkeypatch):
+    """Phase 25a's comparison at a small threshold on CPU tensors: the
+    switch's chunked path counted by ``chunk_calls``, a wrong output and
+    an unchunked path each flagged."""
+    from repro_torch.kernels import ref
+    from repro_torch.models import layers
+    monkeypatch.setattr(layers, "CHUNK_THRESHOLD", 64)
+    monkeypatch.setattr(layers, "Q_CHUNK", 16)
+    monkeypatch.setattr(layers, "KV_CHUNK", 24)
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, 100, h, 16, generator=gen) for h in (4, 2, 2))
+    kernel = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2)).transpose(1, 2)
+
+    def compare(got, seq=100):
+        with chip_smoke.chunk_calls() as calls:
+            want = layers.attention(q, k, v, causal=True)
+        return chip_smoke.oracle_failures(
+            chip_smoke.max_err(got, want), 2e-5,
+            chip_smoke.block_rel_err(got, want, block=32),
+            chip_smoke.LONG_REL_TOL["float32"], seq, calls.calls, 0,
+            4 * 4 * 100 * 100)
+
+    assert compare(kernel) == []
+    assert "max abs err" in compare(kernel * 1.01)[0]
+    monkeypatch.setattr(layers, "CHUNK_THRESHOLD", 1000)
+    failed = compare(kernel)
+    assert any("chunked path" in f for f in failed)
+    assert any("threshold" in f for f in failed)
+
+
+def test_block_rel_err_is_each_blocks_own_scale():
+    """A block's error over the block's own norm; the short last block
+    counts, and the measure is the largest block's."""
+    want = torch.ones(1, 5, 1, 2)
+    got = want.clone()
+    got[0, 4] *= 1.5                 # only the last, short block is off
+    assert chip_smoke.block_rel_err(got, want, block=2) == \
+        pytest.approx(0.5)
+    assert chip_smoke.block_rel_err(got, want, block=5) == \
+        pytest.approx(0.5 / 5 ** 0.5)
+    assert chip_smoke.block_rel_err(want, want) == 0.0
+
+
+def _weighted_tile_attention(q, k, v, tile, weight, rows=1024):
+    """Causal attention in fp32, cast to bf16, in which the keys of
+    ``tile`` (start, stop) carry ``weight`` times their softmax weight:
+    0 drops the tile, as a kernel that skips one KV tile would; 0.5 is a
+    wrong rescale of it.  Computed ``rows`` query rows at a time."""
+    import math
+    B, S, H, hd = q.shape
+    g = H // k.shape[2]
+    kk, vv = (t.repeat_interleave(g, dim=2).float() for t in (k, v))
+    pos = torch.arange(S)
+    out = []
+    for r in range(0, S, rows):
+        s = torch.einsum("bshd,bthd->bhst", q[:, r:r + rows].float(),
+                         kk) / math.sqrt(hd)
+        s = s.masked_fill(pos[None, :] > pos[r:r + rows, None],
+                          float("-inf"))
+        if weight != 1.0:
+            s[..., tile[0]:tile[1]] += math.log(weight) if weight \
+                else -math.inf
+        out.append(torch.einsum("bhst,bthd->bshd", torch.softmax(s, -1),
+                                vv))
+    return torch.cat(out, dim=1).to(q.dtype)
+
+
+@pytest.mark.parametrize("fault", ["none", "dropped tile", "tile at half"])
+def test_the_long_check_catches_a_fault_late_in_the_chain(monkeypatch,
+                                                          fault):
+    """Phase 25a's measures at 8,192 causal bf16 tokens on the CPU, with
+    blocks of LONG_BLOCK rows, against the chunked oracle: a right
+    kernel passes; one that drops a 128-key tile near the end of the
+    chain, or weights it by half, moves the late rows (whose outputs are
+    small) by less than bf16's 3e-2, and is caught by the block-relative
+    measure."""
+    from repro_torch.models import layers
+    monkeypatch.setattr(layers, "CHUNK_THRESHOLD", 1024)
+    monkeypatch.setattr(layers, "Q_CHUNK", 512)
+    monkeypatch.setattr(layers, "KV_CHUNK", 512)
+    S, tile = 8192, (7680, 7808)
+    gen = torch.Generator().manual_seed(7)
+    q, k, v = (torch.randn(1, S, h, 64, generator=gen).to(torch.bfloat16)
+               for h in (2, 1, 1))
+    weight = {"none": 1.0, "dropped tile": 0.0, "tile at half": 0.5}[fault]
+    got = _weighted_tile_attention(q, k, v, tile, weight)
+    with chip_smoke.chunk_calls() as calls:
+        want = layers.attention(q, k, v, causal=True)
+    assert calls.calls == 1
+    err = chip_smoke.max_err(got, want)
+    rel = chip_smoke.block_rel_err(got, want)
+    failed = chip_smoke.oracle_failures(
+        err, chip_smoke.TOL["bfloat16"], rel,
+        chip_smoke.LONG_REL_TOL["bfloat16"], S, calls.calls, 0, 1)
+    assert err <= chip_smoke.TOL["bfloat16"]
+    if fault == "none":
+        assert failed == [] and rel < chip_smoke.LONG_REL_TOL["bfloat16"] / 2
+    else:
+        assert len(failed) == 1 and "block relative err" in failed[0], failed
+
+
+def test_flop_failures_flag_unequal_counts():
+    assert chip_smoke.flop_failures(10, 10, "x") == []
+    assert "card" in chip_smoke.flop_failures(10, 11, "x")[0]
+    assert chip_smoke.flop_failures(0, 0, "x") != []
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_card_cost_counts_what_the_meta_pass_counts(kind):
+    """``card_cost`` on the CPU (phase 25b's route on another device): the
+    smoke llama's step of each kind counts the meta pass's products."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import ShapeConfig, smoke
+    cfg = smoke(get_config("llama3.2-1b"))
+    card, meta = chip_smoke.card_cost(
+        torch, torch.device("cpu"), cfg, ShapeConfig(kind, 32, 2, kind),
+        steps.TrainSettings(remat="full"), torch.float32)
+    assert card == meta["flops"] > 0
+    assert chip_smoke.flop_failures(card, meta["flops"], kind) == []

@@ -1,0 +1,563 @@
+"""The port's dry run against the JAX package's, on the CPU.
+
+* ``model_flops`` equals the reference's for every config x shape.
+* ``steps.input_specs`` matches the reference's structs leaf by leaf for
+  every config at full width, every shape and profile, on the (2, 2) and
+  (16, 16) meshes: global shape, dtype and placements against the
+  reference's ``ShapeDtypeStruct`` and ``PartitionSpec``.  Parameters and
+  moments are compared in the reference's layout, stacked over periods
+  (``convert.jax_layout``).  The JAX side builds its ``NamedSharding``s on
+  an ``AbstractMesh`` (no devices), its rules on a stand-in mesh with the
+  two attributes they read; the port's side builds a DeviceMesh of the
+  layout (``mesh.layout_mesh``), built over a one-rank gloo group that
+  the builder destroys before it returns.
+* ``make_period_body``'s arguments match the reference's, and the body's
+  counted products times ``n_periods`` are the whole pass's less its
+  embedding frontend and head (smoke configs of two periods).
+* The cost pass's FLOPs for llama3.2-1b at full width equal the products
+  counted by hand.
+* ``run_cell``'s record has the reference's keys; the reference's
+  ``benchmarks.roofline`` reads the port's records.
+* The analytic collective term: zero on one device, and on a (2, 2)
+  layout under "fsdp" the sum over the leaves.
+* The layout mesh of 512 ranks builds over one rank, without the fake
+  process group of ``torch.testing``.
+
+The reference's dryrun module sets ``XLA_FLAGS`` (512 host devices) when
+it is imported; the import below restores the variable at once, so the
+JAX backend of this process and its subprocesses keep their own flags.
+"""
+import ast
+import dataclasses
+import json
+import math
+import os
+import subprocess
+import sys
+import types
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch.distributed as dist  # noqa: E402
+from jax.sharding import AbstractMesh, NamedSharding  # noqa: E402
+
+_FLAGS = os.environ.get("XLA_FLAGS")
+from repro.launch import dryrun as jdryrun  # noqa: E402
+if _FLAGS is None:
+    os.environ.pop("XLA_FLAGS", None)
+else:
+    os.environ["XLA_FLAGS"] = _FLAGS
+
+from repro.configs import all_configs as jall_configs  # noqa: E402
+from repro.launch import sharding as jsh  # noqa: E402
+from repro.launch import steps as jsteps  # noqa: E402
+from repro.models import config as jmc  # noqa: E402
+from repro.optim import AdamWConfig as JAdamWConfig  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.convert import jax_layout  # noqa: E402
+from repro_torch.launch import dryrun, steps  # noqa: E402
+from repro_torch.launch import mesh as tmesh  # noqa: E402
+from repro_torch.launch import sharding as sh  # noqa: E402
+from repro_torch.models import LM, smoke  # noqa: E402
+from repro_torch.models.config import (ALL_SHAPES, DECODE_32K,  # noqa: E402
+                                       PREFILL_32K, TRAIN_4K, ShapeConfig)
+from repro_torch.optim import CompressionConfig  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+ARCHS = sorted(jall_configs())
+SHAPES = {s.name: s for s in ALL_SHAPES}
+JSHAPES = {s.name: s for s in jmc.ALL_SHAPES}
+MESHES = {"2x2": ((2, 2), ("data", "model")),
+          "16x16": ((16, 16), ("data", "model"))}
+PROFILES = ("default", "fsdp", "sp")
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+          "int32": torch.int32}
+
+
+@pytest.fixture
+def layout():
+    """``layout(name)``: (port DeviceMesh of the layout, JAX stand-in mesh,
+    JAX abstract mesh); building the port's mesh leaves no process group
+    behind."""
+    def build(name):
+        shape, names = MESHES[name]
+        mesh = tmesh.layout_mesh(shape, names)
+        assert not dist.is_initialized()
+        return (mesh,
+                types.SimpleNamespace(axis_names=names,
+                                      devices=np.empty(shape, dtype=object)),
+                AbstractMesh(shape, names))
+    return build
+
+
+def jax_rules(jmesh, amesh, profile):
+    """The reference's rules whose ``sharding`` is a NamedSharding on the
+    abstract mesh (the real one would need the mesh's devices)."""
+    rules = jsh.make_rules(jmesh, profile)
+    rules.sharding = lambda axes, shape=None: NamedSharding(
+        amesh, rules.spec(axes, shape))
+    return rules
+
+
+def flat(tree, prefix=""):
+    if not isinstance(tree, dict):
+        return {prefix[:-1]: tree}
+    out = {}
+    for k, v in tree.items():
+        out.update(flat(v, f"{prefix}{k}/"))
+    return out
+
+
+def entry_axes(entry):
+    return () if entry is None else (entry,) if isinstance(entry, str) \
+        else tuple(entry)
+
+
+def check_struct(port, ref, names, key, stacked_rows=None):
+    """One port struct against one reference ShapeDtypeStruct; with
+    ``stacked_rows`` the reference leaf stacks that many port leaves along
+    a leading unsharded dim."""
+    from torch.distributed.tensor import Replicate, Shard
+    spec = tuple(ref.sharding.spec)
+    shape = tuple(ref.shape)
+    if stacked_rows is not None:
+        assert shape[0] == stacked_rows and (not spec or spec[0] is None), key
+        shape, spec = shape[1:], spec[1:]
+    assert tuple(port.shape) == shape, key
+    assert port.dtype == DTYPES[str(ref.dtype)], key
+    want = [Replicate()] * len(names)
+    for i, entry in enumerate(spec):
+        for a in entry_axes(entry):
+            want[names.index(a)] = Shard(i)
+    assert tuple(port.placements) == tuple(want), (key, spec)
+
+
+def check_named(cfg, port, ref, names, what):
+    """{parameter name: struct} against the reference's stacked tree."""
+    ref_flat = flat(ref)
+    layout = jax_layout(cfg, port)
+    assert sorted(layout) == sorted(ref_flat), what
+    for key, (stacked, rows) in layout.items():
+        for n in rows:
+            check_struct(port[n], ref_flat[key], names, f"{what}/{key}",
+                         len(rows) if stacked else None)
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_model_flops_match_the_reference(arch, shape):
+    assert dryrun.model_flops(get_config(arch), SHAPES[shape]) == \
+        jdryrun.model_flops(jall_configs()[arch], JSHAPES[shape])
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_model_structs_are_the_models_parameters(arch):
+    cfg = get_config(arch)
+    want = {n: (tuple(p.shape), p.dtype) for n, p in
+            LM(cfg, dtype=torch.bfloat16, device="meta").named_parameters()}
+    got = {n: (tuple(t.shape), t.dtype)
+           for n, t in steps.model_structs(cfg, None).items()}
+    assert got == want
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_input_specs_match_the_reference(layout, arch):
+    cfg, jcfg = get_config(arch), jall_configs()[arch]
+    tset = steps.TrainSettings()
+    jset = jsteps.TrainSettings(opt=JAdamWConfig(state_dtype=jnp.float32))
+    for mesh_name in MESHES:
+        mesh, jmesh, amesh = layout(mesh_name)
+        names = list(MESHES[mesh_name][1])
+        for profile in PROFILES:
+            for shape in SHAPES:
+                rules = sh.make_rules(mesh, profile)
+                jrules = jax_rules(jmesh, amesh, profile)
+                port = steps.input_specs(cfg, SHAPES[shape], rules, tset)
+                ref = jsteps.input_specs(jcfg, JSHAPES[shape], jrules, jset)
+                what = f"{mesh_name} {profile} {shape}"
+                assert sorted(port) == sorted(ref), what
+                check_named(cfg, port["params"], ref["params"], names,
+                            f"{what} params")
+                for k, v in port["batch"].items():
+                    check_struct(v, ref["batch"][k], names, f"{what} {k}")
+                assert sorted(port["batch"]) == sorted(ref["batch"])
+                if "opt_state" in port:
+                    for m in ("m", "v"):
+                        check_named(cfg, port["opt_state"][m],
+                                    ref["opt_state"][m], names,
+                                    f"{what} {m}")
+                    assert port["opt_state"]["count"] == 0
+                if "cache" in port:
+                    pc, rc = flat(port["cache"]), flat(ref["cache"])
+                    assert sorted(pc) == sorted(rc), what
+                    for k in pc:
+                        check_struct(pc[k], rc[k], names, f"{what} {k}")
+                # The step index and decode position: the reference's int32
+                # scalars are the Python ints the port's steps take.
+                for k in ("step", "pos"):
+                    if k in ref:
+                        assert (ref[k].shape, str(ref[k].dtype)) == \
+                            ((), "int32")
+                        assert isinstance(port[k], int), k
+                assert rules.fallbacks == jrules.fallbacks, what
+
+
+def test_batch_specs_cover_the_three_input_modes():
+    seen = set()
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        seen.add(cfg.input_mode)
+        for S in (1, 300):
+            b = steps.batch_specs(cfg, 2, S, None, with_labels=True)
+            assert tuple(b["labels"].shape) == (2, S)
+            if cfg.input_mode == "mixed":
+                n_patch = max(1, int(S * cfg.patch_frac)) if S > 1 else 0
+                assert tuple(b["patch_embeds"].shape) == (2, n_patch,
+                                                          cfg.d_model)
+                assert tuple(b["tokens"].shape) == (2, S - n_patch)
+    assert seen == {"tokens", "embeds", "mixed"}
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_period_body_arguments_match_the_reference(layout, arch):
+    cfg, jcfg = get_config(arch), jall_configs()[arch]
+    tset, jset = steps.TrainSettings(), jsteps.TrainSettings()
+    mesh, jmesh, amesh = layout("16x16")
+    names = list(MESHES["16x16"][1])
+    for shape in SHAPES:
+        body = steps.make_period_body(cfg, SHAPES[shape],
+                                      sh.make_rules(mesh, "default"), tset)
+        jbody = jsteps.make_period_body(jcfg, JSHAPES[shape],
+                                        jax_rules(jmesh, amesh, "default"),
+                                        jset)
+        assert (body is None) == (jbody is None) == (cfg.n_periods <= 1)
+        if body is None:
+            continue
+        args, jargs = body[1], jbody[1]
+        assert len(args) == len(jargs)
+        pl, rl = flat(args[0]), flat(jargs[0])
+        assert sorted(pl) == sorted(rl)
+        for k in pl:
+            check_struct(pl[k], rl[k], names, f"{shape} {k}")
+        for i in (1, 2):
+            check_struct(args[i], jargs[i], names, f"{shape} arg {i}")
+        if shape.startswith("decode") or shape == "long_500k":
+            pc, rc = flat(args[3]), flat(jargs[3])
+            assert sorted(pc) == sorted(rc)
+            for k in pc:
+                check_struct(pc[k], rc[k], names, f"{shape} cache {k}")
+        elif len(args) == 4:
+            assert args[3] is None and jargs[3] is None
+
+
+SMOKE_BODY = [a for a in ARCHS if smoke(get_config(a)).n_periods > 1
+              and smoke(get_config(a)).remainder_layers == 0]
+SMALL = {"train": ShapeConfig("t", 24, 2, "train"),
+         "prefill": ShapeConfig("p", 24, 2, "prefill"),
+         "decode": ShapeConfig("d", 40, 2, "decode")}
+
+
+def head_products(cfg, shape):
+    """The products outside the layer stack: the head (every position in
+    train, the last one in inference; forward 2·d·V, and in train the two
+    backward products) and the embedding frontend of "embeds"/"mixed"
+    (forward 2·d·d a projected input; train adds the weight gradient, the
+    inputs take none)."""
+    B, S, d, V = shape.global_batch, shape.seq_len, cfg.d_model, \
+        cfg.padded_vocab
+    S_in = 1 if shape.kind == "decode" else S
+    proj = 0
+    if cfg.input_mode == "embeds":
+        proj = S_in
+    elif cfg.input_mode == "mixed":
+        proj = max(1, int(S_in * cfg.patch_frac)) if S_in > 1 else 0
+    if shape.kind == "train":
+        return 6 * B * S * d * V + 4 * B * proj * d * d
+    return 2 * B * d * V + 2 * B * proj * d * d
+
+
+@pytest.mark.parametrize("kind", list(SMALL))
+@pytest.mark.parametrize("arch", SMOKE_BODY)
+def test_period_body_times_periods_is_the_layers_share(arch, kind):
+    from torch.utils.flop_counter import FlopCounterMode
+    cfg = smoke(get_config(arch))
+    shape = SMALL[kind]
+    tset = steps.TrainSettings(remat="full")
+    whole = dryrun.cost_pass(cfg, shape, tset)["flops"]
+    fn, args = steps.make_period_body(cfg, shape, None, tset)
+    counter = FlopCounterMode(display=False)
+    with counter:
+        out = fn(*args)
+    body = counter.get_total_flops()
+    assert body > 0 and cfg.n_periods == 2
+    assert body * cfg.n_periods == whole - head_products(cfg, shape)
+    if kind == "train":
+        val, (grads, gx) = out
+        assert val.shape == () and tuple(gx.shape) == tuple(args[1].shape)
+        assert flat(grads).keys() == flat(args[0]).keys()
+
+
+def llama_products(cfg, B, S, kind, remat="none", T=None):
+    """llama3.2-1b's matrix products counted by hand.  Per layer and token
+    the forward projections (q, k, v, o) and the SwiGLU's three; the
+    attention 4·hd·Nq per (query, key) pair over every key (the plain path
+    and the chunked one compute the whole S x T grid; decode attends to
+    the whole cache T); the head 2·d·V at every position in train and the
+    last in prefill.  Train: the backward doubles every product; remat
+    "full" recomputes each layer's forward but its last product, the FFN
+    down-projection, whose output the backward does not need."""
+    d, nq, nkv, hd, ff, V, L = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                cfg.hd, cfg.d_ff, cfg.padded_vocab,
+                                cfg.n_layers)
+    proj = 2 * d * (nq + 2 * nkv) * hd + 2 * nq * hd * d
+    ffn = 3 * 2 * d * ff
+    if kind == "decode":
+        tokens, pairs = B, B * T
+    else:
+        tokens, pairs = B * S, B * S * S
+    layer_fwd = L * (tokens * (proj + ffn) + pairs * 4 * hd * nq)
+    head_tokens = tokens if kind == "train" else B
+    fwd = layer_fwd + head_tokens * 2 * d * V
+    if kind != "train":
+        return fwd
+    total = 3 * fwd
+    if remat == "full":
+        total += layer_fwd - L * tokens * 2 * ff * d
+    return total
+
+
+LLAMA_CASES = {
+    "train_4k": (TRAIN_4K, "dots", 0),
+    "train_1x4096_none": (ShapeConfig("t1", 4096, 1, "train"), "none", 0),
+    "train_1x4096_full": (ShapeConfig("t1", 4096, 1, "train"), "full", 0),
+    # 2 of the 16 layers: the per-layer count is the same at every depth,
+    # and the chunked attention's loops on meta take about 2 s a layer.
+    "prefill_32k_2_layers": (PREFILL_32K, "dots", 2),
+    "decode_32k": (DECODE_32K, "dots", 0),
+}
+
+
+@pytest.mark.parametrize("case", list(LLAMA_CASES))
+def test_llama_cost_pass_counts_the_products(case):
+    shape, remat, layers = LLAMA_CASES[case]
+    cfg = get_config("llama3.2-1b")
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    got = dryrun.cost_pass(cfg, shape, steps.TrainSettings(remat=remat))
+    want = llama_products(cfg, shape.global_batch, shape.seq_len,
+                          shape.kind, remat, T=shape.seq_len)
+    assert got["flops"] == want
+    assert set(got["flops_by_op"]) == {"aten.mm", "aten.bmm"}
+    assert got["bytes"] > 0 and got["temp_bytes"] > 0
+
+
+def test_llama_train_counts_of_the_scratch_runs():
+    """The counts the issue's scratch run took with FlopCounterMode."""
+    cfg = get_config("llama3.2-1b")
+    t1 = ShapeConfig("t1", 4096, 1, "train")
+    assert llama_products(cfg, 1, 4096, "train", "none") == 36966783516672
+    assert llama_products(cfg, 1, 4096, "train", "full") == 44938242818048
+    assert llama_products(cfg, 128, None, "decode", T=32768) == \
+        866106998784
+    assert llama_products(cfg, 32, 32768, "prefill") == 6544310019293184
+    assert t1.global_batch * t1.seq_len == 4096
+
+
+def reference_record_keys():
+    """The keys the reference's ``run_cell`` writes, read from its source
+    (``src/repro/launch/dryrun.py``)."""
+    tree = ast.parse((ROOT / "src/repro/launch/dryrun.py").read_text())
+    fn = next(n for n in tree.body if isinstance(n, ast.FunctionDef)
+              and n.name == "run_cell")
+    keys, memory = set(), set()
+    for node in ast.walk(fn):
+        if isinstance(node, ast.AnnAssign) and node.target.id == "rec":
+            keys |= {k.value for k in node.value.keys}
+        if isinstance(node, ast.Assign) and isinstance(
+                node.targets[0], ast.Subscript) and \
+                node.targets[0].value.id == "rec":
+            keys.add(node.targets[0].slice.value)
+        if isinstance(node, ast.Call) and getattr(node.func, "attr",
+                                                  "") == "update":
+            keys |= {kw.arg for kw in node.keywords}
+            memory |= {kw.arg for kw in next(
+                kw.value for kw in node.keywords
+                if kw.arg == "memory").keywords}
+    return keys, memory
+
+
+def test_run_cell_writes_the_reference_keys_and_both_readers_read_them(
+        tmp_path, layout):
+    from benchmarks import roofline as jroofline
+    from repro_torch.launch import roofline
+    keys, memory = reference_record_keys()
+    assert {"flops_per_device", "collectives", "memory"} <= keys
+    assert memory == {"argument_bytes", "output_bytes", "temp_bytes",
+                      "alias_bytes"}
+    assert dryrun.main(["--arch", "llama3.2-1b", "--shape", "decode_32k",
+                        "--out", str(tmp_path)]) == 0
+    assert dryrun.main(["--arch", "llama3.2-1b", "--shape", "long_500k",
+                        "--mesh", "single", "--out", str(tmp_path)]) == 0
+    recs = {p.name: json.loads(p.read_text())
+            for p in sorted(tmp_path.glob("*.json"))}
+    assert sorted(recs) == ["llama3.2-1b__decode_32k__multi.json",
+                            "llama3.2-1b__decode_32k__single.json",
+                            "llama3.2-1b__long_500k__single.json"]
+    for name, rec in recs.items():
+        if "skipped" in rec:
+            assert set(rec) == {"arch", "shape", "mesh", "profile",
+                                "skipped"}
+            continue
+        assert set(rec) == keys - {"skipped"}, name
+        assert set(rec["memory"]) == memory
+        assert set(rec["collectives"]) == set(dryrun.COLLECTIVES)
+        assert rec["n_devices"] == (512 if "multi" in name else 256)
+    single = recs["llama3.2-1b__decode_32k__single.json"]
+    multi = recs["llama3.2-1b__decode_32k__multi.json"]
+    assert single["flops_per_device"] == 2 * multi["flops_per_device"]
+    assert single["model_flops_total"] == dryrun.model_flops(
+        get_config("llama3.2-1b"), DECODE_32K)
+    assert single["trip_scaled_periods"] == 15
+    for reader in (jroofline, roofline):
+        cells = {(c.shape, c.mesh): c for c in reader.load_cells(
+            str(tmp_path))}
+        assert cells[("long_500k", "single")].bottleneck == "-"
+        c = cells[("decode_32k", "single")]
+        assert c.compute_s > 0 and c.memory_s > 0 and c.collective_s > 0
+        assert c.model_ratio == pytest.approx(
+            single["model_flops_total"] / 256 / single["flops_per_device"])
+        assert "decode_32k" in reader.table(str(tmp_path))
+
+
+def test_main_reports_a_failing_cell(tmp_path, capsys):
+    assert dryrun.main(["--arch", "no-such-arch", "--shape", "decode_32k",
+                        "--mesh", "single", "--out", str(tmp_path)]) == 1
+    assert "FAIL" in capsys.readouterr().out
+    rec = json.loads(next(tmp_path.glob("*.json")).read_text())
+    assert "error" in rec
+
+
+def sum_collectives(cfg, jrules, kind, grad_bytes):
+    """All-gather and reduce-scatter bytes of the analytic model, summed
+    over the leaves from the reference's specs: g = the product of the
+    mesh axes that shard a leaf; an all-gather of the leaf's bf16 bytes
+    b moves b·(g-1)/g, once in the forward and once in the backward; a
+    reduce-scatter of the local gradient's bytes moves them times (g-1)."""
+    ag = rs = 0.0
+    for spec in steps.named_param_specs(cfg).values():
+        entries = jrules.spec(spec.axes, spec.shape)
+        g = math.prod(jrules.sizes[a] for e in entries
+                      for a in entry_axes(e))
+        if g == 1:
+            continue
+        numel = math.prod(spec.shape)
+        ag += (2 if kind == "train" else 1) * 2 * numel * (g - 1) / g
+        if kind == "train":
+            rs += grad_bytes * numel / g * (g - 1)
+    return ag, rs
+
+
+@pytest.mark.parametrize("compress", [False, True])
+def test_collectives_on_a_2x2_layout_under_fsdp(layout, compress):
+    cfg = get_config("llama3.2-1b")
+    mesh, jmesh, amesh = layout("2x2")
+    tset = steps.TrainSettings(
+        compress=CompressionConfig() if compress else None)
+    rules = sh.make_rules(mesh, "fsdp")
+    params = steps.model_structs(cfg, rules)
+    coll = dryrun.analytic_collectives(params, "train", rules, tset)
+    ag, rs = sum_collectives(cfg, jsh.make_rules(jmesh, "fsdp"), "train",
+                             1 if compress else 2)
+    assert coll["all-gather"]["bytes"] == pytest.approx(ag, rel=1e-12)
+    assert coll["reduce-scatter"]["bytes"] == pytest.approx(rs, rel=1e-12)
+    # The replicated leaves (norm weights) all-reduce over the four ranks.
+    n_repl = sum(not any(jsh.make_rules(jmesh, "fsdp").spec(s.axes, s.shape))
+                 for s in steps.named_param_specs(cfg).values())
+    assert coll["all-reduce"]["count"] == n_repl > 0
+    assert coll["all-to-all"]["bytes"] == coll["collective-permute"][
+        "bytes"] == 0
+    infer = dryrun.analytic_collectives(params, "prefill", rules, tset)
+    assert infer["all-gather"]["bytes"] == pytest.approx(ag / 2, rel=1e-12)
+    assert infer["reduce-scatter"]["count"] == infer["all-reduce"][
+        "count"] == 0
+
+
+def test_collectives_are_zero_on_one_device(layout):
+    mesh = tmesh.layout_mesh((1, 1), ("data", "model"))
+    rules = sh.make_rules(mesh, "default")
+    cfg = get_config("llama3.2-1b")
+    coll = dryrun.analytic_collectives(steps.model_structs(cfg, rules),
+                                       "train", rules,
+                                       steps.TrainSettings())
+    assert all(v["bytes"] == 0 and v["count"] == 0 for v in coll.values())
+
+
+def test_wire_bytes_are_the_reference_ring_factors():
+    hlo = "\n".join([
+        "x = bf16[1024]{0} all-gather(y), replica_groups={{0,1,2,3}}",
+        "x = f32[64]{0} all-reduce(y), replica_groups=[2,8]<=[16]",
+        "x = s8[256]{0} reduce-scatter(y), replica_groups={{0,1}}",
+        "x = f32[32]{0} all-to-all(y), replica_groups={{0,1,2,3}}",
+        "x = bf16[8]{0} collective-permute(y)"])
+    ref = jdryrun.parse_collectives(hlo)
+    for op, res, g in (("all-gather", 2048, 4), ("all-reduce", 256, 8),
+                       ("reduce-scatter", 256, 2), ("all-to-all", 128, 4),
+                       ("collective-permute", 16, 1)):
+        assert dryrun.wire_bytes(op, res, g) == ref[op]["bytes"], op
+    assert dryrun.DTYPE_BYTES == jdryrun.DTYPE_BYTES
+    assert dryrun.COLLECTIVES == jdryrun.COLLECTIVES
+
+
+def test_prefill_and_decode_steps_run_under_their_rules(layout,
+                                                        monkeypatch):
+    cfg = smoke(get_config("llama3.2-1b"))
+    mesh, _, _ = layout("2x2")
+    rules = sh.make_rules(mesh)
+    seen = []
+    monkeypatch.setattr(LM, "prefill", lambda self, b, n: seen.append(
+        sh.current_rules()) or (None, None, 0))
+    monkeypatch.setattr(LM, "decode_step", lambda self, b, c, p: seen.append(
+        sh.current_rules()) or (None, c))
+    model = LM(cfg, device="meta")
+    steps.make_prefill_step(cfg, 8, rules)(model, {})
+    steps.make_decode_step(cfg, rules)(model, {}, {}, 0)
+    assert seen == [rules, rules] and sh.current_rules() is None
+
+
+def test_layout_mesh_of_512_ranks_needs_no_group_of_512():
+    """In a fresh interpreter: the (2, 16, 16) layout built over a one-rank
+    gloo group, without the fake process group of ``torch.testing``, and
+    the group gone once it is built; llama's (2048, 8192) FFN leaf under
+    "fsdp" is cut to (8, 8192) on this rank."""
+    code = """
+import sys
+import torch.distributed as dist
+from repro_torch.configs import get_config
+from repro_torch.launch import mesh, sharding, steps
+m = mesh.make_layout_mesh(multi_pod=True)
+assert tuple(m.shape) == (2, 16, 16), m.shape
+assert m.mesh_dim_names == ("pod", "data", "model")
+assert not dist.is_initialized()
+assert tuple(m.get_coordinate()) == (0, 0, 0)
+# The mesh is built without torch.testing's fake backend (DTensor itself
+# imports that module once a DTensor is made, below).
+assert not [k for k in sys.modules if "fake_pg" in k]
+p = steps.model_structs(get_config("llama3.2-1b"),
+                        sharding.make_rules(m, "fsdp"))["layers.0.ffn.w_gate"]
+assert tuple(p.shape) == (2048, 8192) and p.device.type == "meta"
+assert tuple(p.to_local().shape) == (8, 8192), p.to_local().shape
+assert not dist.is_initialized()
+print("ok")
+"""
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": os.pathsep.join(
+            [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")])})
+    assert res.returncode == 0 and res.stdout.strip() == "ok", \
+        res.stdout[-2000:] + res.stderr[-3000:]

@@ -88,7 +88,8 @@ def test_scan_sees_the_whole_port():
             "core/protocols/cornus_opt1.py", "core/protocols/paxos_commit.py",
             "txn/__init__.py", "txn/threaded.py", "serve/slo.py",
             "serve/session.py", "serve/publisher.py",
-            "serve/engine.py", "optim/compress.py", "launch/mesh.py"} <= names
+            "serve/engine.py", "optim/compress.py", "launch/mesh.py",
+            "launch/dryrun.py", "launch/roofline.py"} <= names
     assert (ROOT / "chip_smoke.py").exists()
 
 
@@ -129,3 +130,42 @@ def test_entry_points_refuse_the_cpu_by_default(no_cuda):
     from repro_torch.launch import train
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--steps", "1"])
+
+
+def test_the_dry_run_runs_on_meta_and_allocates_nothing():
+    """The dry run is the one entry point that does not refuse the CPU (the
+    check above): it places and runs nothing on a device.  Every tensor its
+    cost pass makes, for each step kind, is on ``meta`` but for small host
+    tensors on the CPU: the 0-d scalars of the optimizer's bias corrections
+    and the constants that ``torch.tensor(data, device="meta")`` stages on
+    the host (the rope frequencies).  None is on CUDA."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.models import ShapeConfig, smoke
+
+    class Devices(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.off_meta = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            self.off_meta += [(str(func), t.device.type,
+                               t.numel() * t.element_size())
+                              for t in tree_leaves(out)
+                              if isinstance(t, torch.Tensor)
+                              and t.device.type != "meta"]
+            return out
+
+    cfg = smoke(get_config("jamba-v0.1-52b"))
+    seen = Devices()
+    with seen:
+        for kind in ("train", "prefill", "decode"):
+            dryrun.cost_pass(cfg, ShapeConfig(kind, 16, 2, kind),
+                             steps.TrainSettings())
+    assert {dev for _, dev, _ in seen.off_meta} <= {"cpu"}, seen.off_meta
+    assert sum(n for _, _, n in seen.off_meta) < 4096, seen.off_meta
+    assert not torch.cuda.is_initialized()
