@@ -152,6 +152,14 @@ Phases, each of which must pass (any failure exits non-zero):
      memory terms beside the phases' measured ms; 25c, ``launch.dryrun``
      for llama3.2-1b on the (16, 16) layout and its
      ``launch.roofline.table``;
+ 26. the discrete-event half of the commit core on the card's host
+     (``sim_phase``): the port's ``run_bench`` (in process, no fork) on
+     the Fig 5 cell (Redis and Blob, cornus and 2pc), a seeded chaos run
+     with its history checked, the R = 3 geo pair, the six Table 3 rows
+     and the coordinator failure of examples/nonblocking_demo.py, each
+     value equal to the JAX package's (``SIM_PINNED``, sim ms); the Fig 5
+     speedups with their verdicts against tests/test_paper_bands.py's
+     bands; it launches no kernel;
 then one ``{"kernels": [...]}`` line, whose launches are those of every
 served path's counted wave (phases 5, 8, 10, 14, 18, 20, 23), of the
 training runs (phases 11 and 11b), of the engine runs (phase 24) and of
@@ -346,6 +354,48 @@ LONG_CASES = (("llama3.2-1b", 32, 8, 64, "bfloat16"),
 # the repo's fp32 tolerance, here relative.
 LONG_BLOCK = 1024
 LONG_REL_TOL = {"bfloat16": 1e-2, "float32": 2e-5}
+# Phase 26: the discrete-event half of the commit core, on the card's host.
+# The runs of the paper's own experiment: the Fig 5 cell of
+# benchmarks/paper_figs.py:43-62 (YCSB, theta 0, 10,000 keys a partition,
+# half reads; 4 nodes, horizon 900 sim ms, seed 1) on Azure Redis and Blob;
+# a seeded chaos run (FaultSchedule.generate(3, n0-n3, 400), cornus on
+# Redis, history checked); the geo pair of paper_figs._geo_bench(p, 3)
+# (R = 3 replicated-sim across regions, horizon 4,000, seed 7); the six
+# Table 3 rows at a 10 ms RTT; and examples/nonblocking_demo.py's
+# coordinator failure (n0 dies at 1 ms, Redis, seed 7).  Every value is
+# the JAX package's, in sim ms (the same on any machine), and is held with
+# ``==`` (tests/test_torch_chip_smoke.py re-derives each from the JAX
+# package).  Fig 5's values are (commits, aborts, avg, p99); the chaos
+# run's (commits, aborts, avg, violations); Table 3's (measured,
+# predicted); the demo's (node, decision, blocked, termination ms) per
+# participant.
+SIM_NODES = ("n0", "n1", "n2", "n3")
+SIM_GEO_PLACEMENT = {"n0": "us-east", "n1": "us-west", "n2": "eu-west",
+                     "n3": "us-west"}
+SIM_GEO_REPLICAS = ("us-east", "us-west", "eu-west")
+SIM_PINNED = {
+    "fig5/redis/cornus": (2905, 521, 9.969982874943804, 23.42329838798426),
+    "fig5/redis/2pc": (2452, 500, 11.83812267881493, 26.585491424489526),
+    "fig5/blob/cornus": (1305, 713, 22.366770953105608, 63.28289617442579),
+    "fig5/blob/2pc": (874, 566, 33.75219101931253, 83.36193850112295),
+    "chaos": (234, 73, 13.524696437294072, 0),
+    "geo/cornus": (71, 0, 453.75917470598887, 506.05565946003935),
+    "geo/2pc": (63, 0, 514.4906412453811, 570.404905934623),
+    "table3/2pc": (50.0, 50.0),
+    "table3/cornus": (30.0, 30.0),
+    "table3/cornus-opt1": (25.0, 25.0),
+    "table3/2pc-coloc": (30.0, 30.0),
+    "table3/cornus-coloc": (20.0, 20.0),
+    "table3/paxos-commit": (15.0, 15.0),
+    "nonblocking/2pc": (("n1", "BLOCKED", True, None),
+                        ("n2", "BLOCKED", True, None),
+                        ("n3", "BLOCKED", True, None)),
+    "nonblocking/cornus": (("n1", "COMMIT", False, 2.0240630164357185),
+                           ("n2", "COMMIT", False, 2.3139846519887186),
+                           ("n3", "COMMIT", False, 1.9872270399095306)),
+}
+# The 2PC-over-Cornus average-latency bands of tests/test_paper_bands.py:37-38.
+SIM_FIG5_BANDS = {"redis": (1.05, 1.5), "blob": (1.2, 1.95)}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1915,6 +1965,102 @@ def dryrun_layout_phase(torch):
         f"{roofline.table(str(out))}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: the discrete-event half of the commit core
+# ---------------------------------------------------------------------------
+def sim_values(core, txn) -> Dict[str, tuple]:
+    """Phase 26's runs on one package's commit core (``core`` and ``txn``
+    are its ``core`` and ``txn`` packages), keyed as ``SIM_PINNED``.  Each
+    ``run_bench`` runs in this process: no trial pool, no fork."""
+    nodes = list(SIM_NODES)
+    out: Dict[str, tuple] = {}
+
+    def summary(r):
+        return (r.commits, r.aborts, r.avg_latency_ms, r.p99_latency_ms)
+
+    def ycsb(nodes, seed):
+        return txn.YCSBWorkload(nodes, theta=0.0, keys_per_partition=10_000,
+                                read_ratio=0.5, seed=seed)
+
+    for tag, model in (("redis", core.AZURE_REDIS),
+                       ("blob", core.AZURE_BLOB)):
+        for proto in ("cornus", "2pc"):
+            out[f"fig5/{tag}/{proto}"] = summary(txn.run_bench(
+                ycsb, model, txn.BenchConfig(protocol=proto, n_nodes=4,
+                                             horizon_ms=900.0, seed=1)))
+    sched = core.FaultSchedule.generate(seed=3, nodes=nodes,
+                                        horizon_ms=400.0)
+    r = txn.run_bench(ycsb, core.AZURE_REDIS, txn.BenchConfig(
+        protocol="cornus", n_nodes=4, horizon_ms=400.0, seed=3, chaos=sched,
+        record_history=True))
+    out["chaos"] = (r.commits, r.aborts, r.avg_latency_ms, r.violations)
+
+    def geo(nodes, seed):
+        return txn.GeoYCSBWorkload(nodes, SIM_GEO_PLACEMENT, "us-east",
+                                   accesses_per_txn=4, seed=seed)
+
+    for proto in ("cornus", "2pc"):
+        out[f"geo/{proto}"] = summary(txn.run_bench(
+            geo, core.AZURE_REDIS, txn.BenchConfig(
+                protocol=proto, n_nodes=4, horizon_ms=4000.0, replication=3,
+                topology=core.CROSS_REGION, placement=SIM_GEO_PLACEMENT,
+                replica_regions=list(SIM_GEO_REPLICAS),
+                coordinator_nodes=["n0"], seed=7)))
+    for row in core.SIMULATED_RTT_ROWS:
+        out[f"table3/{row}"] = (core.measured_caller_latency_ms(row, 10.0),
+                                core.predicted_caller_latency_ms(row, 10.0))
+    for proto in ("2pc", "cornus"):
+        sim = core.Sim()
+        cluster = core.Cluster(
+            sim, core.SimStorage(sim, core.AZURE_REDIS, seed=7), nodes,
+            core.ProtocolConfig(protocol=proto))
+        cluster.fail("n0", 1.0)
+        cluster.run_txn(core.TxnSpec(txn_id="t", coordinator="n0",
+                                     participants=nodes))
+        sim.run(until=120_000)
+        rows = []
+        for n in nodes[1:]:
+            d = cluster.local.get((n, "t"), {}).get("decision")
+            o = cluster.outcomes.get(("t", n))
+            rows.append((n, d.name if d else "BLOCKED",
+                         cluster.blocked.get(("t", n), False),
+                         o.termination_ms if o and o.ran_termination
+                         else None))
+        out[f"nonblocking/{proto}"] = tuple(rows)
+    return out
+
+
+def sim_phase(card: str) -> Dict[str, tuple]:
+    """Phase 26: ``sim_values`` on the port, each value held to
+    ``SIM_PINNED`` with ``==``; prints the Fig 5 speedups with their band
+    verdicts and the phase's wall seconds beside the card."""
+    from repro_torch import core, txn
+    t0 = time.perf_counter()
+    got = sim_values(core, txn)
+    wall = time.perf_counter() - t0
+    check(sorted(got) == sorted(SIM_PINNED),
+          f"phase 26 ran {sorted(got)}, pinned {sorted(SIM_PINNED)}")
+    for key, want in SIM_PINNED.items():
+        check(got[key] == want, f"phase 26 {key}: {got[key]!r} != {want!r}")
+    for tag, (lo, hi) in SIM_FIG5_BANDS.items():
+        sp = got[f"fig5/{tag}/2pc"][2] / got[f"fig5/{tag}/cornus"][2]
+        verdict = "within" if lo < sp < hi else "OUTSIDE"
+        log(f"[sim] fig5 {tag}: cornus {got[f'fig5/{tag}/cornus'][2]!r} "
+            f"sim ms, 2pc {got[f'fig5/{tag}/2pc'][2]!r} sim ms, speedup "
+            f"{sp!r} ({verdict} ({lo}, {hi}))")
+    geo = {p: got[f"geo/{p}"][2] for p in ("cornus", "2pc")}
+    table3 = {k[len("table3/"):]: v[0] for k, v in got.items()
+              if k.startswith("table3/")}
+    log(f"[sim] geo R=3: cornus {geo['cornus']!r} sim ms, 2pc "
+        f"{geo['2pc']!r} sim ms, speedup {geo['2pc'] / geo['cornus']!r}; "
+        f"chaos {got['chaos']}; table3 {table3}")
+    log(f"[sim] nonblocking: 2pc {got['nonblocking/2pc']}; cornus "
+        f"{got['nonblocking/cornus']}")
+    log(f"[sim] phase 26: {len(SIM_PINNED)} values equal to the JAX "
+        f"package's; {wall:.3f} s wall on the host of {card}")
+    return got
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print(f"chip_smoke: {ROOT} is not a checkout of the repository "
@@ -2994,6 +3140,9 @@ def run(torch) -> int:
     cost_vs_card_phase(torch, dev, card, train_out, served)
     dryrun_layout_phase(torch)
     log(f"[long] phase 25 {time.perf_counter() - t_long:.1f} s")
+
+    # -- 26. the discrete-event half of the commit core (no kernel) ---------
+    sim_phase(card)
 
     for entry in kernels:
         per = {path: c[entry["name"]] for path, c in by_path.items()}

@@ -5,7 +5,7 @@ client threads; ``report()`` folds them into an ``SloReport`` — the unit
 the serve bench sweeps per (protocol, arrival rate, batch mode) cell:
 
   p50/p95/p99        – end-to-end step latency (queue + decode + commit),
-                       nearest-rank percentiles (``percentile``).
+                       nearest-rank percentiles (``txn.executor.percentile``).
   tail amplification – p99/p50: how much worse the tail is than the median.
                        This is where 2PC's extra forced decision write
                        shows up even when medians look comparable.
@@ -20,9 +20,7 @@ the serve bench sweeps per (protocol, arrival rate, batch mode) cell:
                        outside it; 1.0 = the event was free.
 
 The port's copy of ``repro/serve/slo.py`` (the standard library only; the
-port imports nothing of the JAX package), with its own copy of
-``percentile`` from ``repro/txn/executor.py``, whose discrete-event
-executor is not ported.
+port imports nothing of the JAX package).
 """
 from __future__ import annotations
 
@@ -30,17 +28,9 @@ import threading
 from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
-__all__ = ["LatencyRecorder", "SloReport", "percentile", "windowed_tput"]
+from ..txn.executor import percentile
 
-
-def percentile(xs: List[float], q: float) -> float:
-    """The percentile rule every bench result reports (nearest-rank on the
-    sorted sample, clamped) — shared so the serving SLO reports and the sim
-    ``BenchResult`` quote identical statistics."""
-    if not xs:
-        return 0.0
-    s = sorted(xs)
-    return s[min(len(s) - 1, int(q * len(s)))]
+__all__ = ["LatencyRecorder", "SloReport", "windowed_tput"]
 
 
 def windowed_tput(times: List[float], start: float, end: float) -> float:

@@ -33,24 +33,23 @@ under its identity, so commits ride the phase-1-free fast path
 (``fast_path_ops``) exactly like the sim results claim.
 
 The port's copy of ``repro/txn/threaded.py`` (the standard library only;
-the port imports nothing of the JAX package), without ``wallclock_rows``:
-the Table-3 row map it reads lives in ``core/variants.py``, which is not
-ported yet (ROADMAP Queue 1 item 10).
+the port imports nothing of the JAX package).
 """
 from __future__ import annotations
 
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from ..core.control import (DecisionCacheConfig, LeaseKeeper, STORM_CONTROL)
 from ..core.protocols import get_protocol
 from ..core.state import Vote
 from ..core.storage import DelayedMemoryStore, DelayedReplicatedStore
+from ..core.variants import SIMULATED_RTT_ROWS
 
 __all__ = ["WallclockConfig", "WallclockResult", "commit_txn",
-           "run_wallclock", "WALLCLOCK_BACKENDS"]
+           "run_wallclock", "wallclock_rows", "WALLCLOCK_BACKENDS"]
 
 # Table-3 deployment → threaded backend: the "leader" rows run against the
 # single shared store, the "coloc" rows against the quorum-replicated one.
@@ -283,3 +282,8 @@ def run_wallclock(cfg: WallclockConfig) -> WallclockResult:
                               else getattr(store, "lease_degradations", 0))
     return res
 
+
+def wallclock_rows() -> Dict[str, Tuple[str, str]]:
+    """Table-3 row → (protocol, threaded backend) for the wall-clock bench."""
+    return {row: (protocol, WALLCLOCK_BACKENDS[mode])
+            for row, (protocol, mode) in SIMULATED_RTT_ROWS.items()}

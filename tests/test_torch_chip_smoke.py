@@ -981,3 +981,23 @@ def test_card_cost_counts_what_the_meta_pass_counts(kind):
         steps.TrainSettings(remat="full"), torch.float32)
     assert card == meta["flops"] > 0
     assert chip_smoke.flop_failures(card, meta["flops"], kind) == []
+
+
+# ---------------------------------------------------------------------------
+# Phase 26: the discrete-event half of the commit core
+# ---------------------------------------------------------------------------
+def test_sim_pinned_values_are_the_reference_s():
+    """Every value phase 26 pins is what the JAX package computes for the
+    same runs, so the script's constants cannot drift from the
+    reference."""
+    import repro.core as jcore
+    import repro.txn as jtxn
+
+    assert chip_smoke.sim_values(jcore, jtxn) == chip_smoke.SIM_PINNED
+
+
+def test_sim_phase_holds_the_port_to_the_pinned_values():
+    """Phase 26 as the script runs it after the card's phases, here on the
+    CPU (it runs no tensor): the port's values equal the pinned ones."""
+    got = chip_smoke.sim_phase("cpu")
+    assert got == chip_smoke.SIM_PINNED

@@ -8,8 +8,7 @@ kernels, one seeded single-threaded op script on both threaded
 and the store factory.  Then the torch twins of the reference's threaded
 ``ReplicatedStore`` tests (tests/test_replicated_store.py), lease-keeper
 tests (tests/test_store_api.py) and wall-clock harness tests
-(tests/test_wallclock.py, without ``test_rows_cover_table3``: the port has
-no ``core/variants.py`` yet).  ``Vote`` and ``Decision`` are distinct enums
+(tests/test_wallclock.py).  ``Vote`` and ``Decision`` are distinct enums
 in the two packages, so values are compared by ``.name``.
 """
 from __future__ import annotations
@@ -33,7 +32,8 @@ from repro_torch.core import (Decision, DecisionCacheConfig,  # noqa: E402
                               FileStore, LeaseKeeper, MemoryStore,
                               QuorumUnavailable, ReplicatedStore, Vote)
 from repro_torch.txn.threaded import (WALLCLOCK_BACKENDS,  # noqa: E402
-                                      WallclockConfig, run_wallclock)
+                                      WallclockConfig, run_wallclock,
+                                      wallclock_rows)
 
 PROTOCOLS = ["cornus", "2pc", "cl", "cornus-opt1", "paxos-commit"]
 FLAGS = ("participant_logs", "vote_via_log_once", "eager_decision_record",
@@ -197,19 +197,16 @@ def test_replicated_store_script_matches():
 # The store factory
 # ---------------------------------------------------------------------------
 def test_store_config_and_registry_match():
-    """The port's StoreConfig carries a subset of the reference's fields,
-    each with the reference's default; its registry holds the reference's
-    threaded backends, and both agree on which names are simulated."""
-    jf = {f.name: f for f in dataclasses.fields(jstores.StoreConfig)}
+    """The port's StoreConfig carries the reference's fields in its order,
+    each with the reference's default; the registries hold the same
+    backends, and both agree on which names are simulated."""
+    jf = [f.name for f in dataclasses.fields(jstores.StoreConfig)]
     tf = [f.name for f in dataclasses.fields(tstores.StoreConfig)]
-    assert set(tf) <= set(jf)
-    assert [n for n in jf if n in tf] == tf          # in the same order
-    jdefault = dataclasses.asdict(jstores.StoreConfig())
-    assert dataclasses.asdict(tstores.StoreConfig()) == \
-        {n: jdefault[n] for n in tf}
-    threaded = [n for n in jstores.registered_stores()
-                if not jstores.is_simulated(n)]
-    assert tstores.registered_stores() == threaded
+    assert tf == jf
+    assert (dataclasses.asdict(tstores.StoreConfig())
+            == dataclasses.asdict(jstores.StoreConfig()))
+    assert tstores.registered_stores() == jstores.registered_stores()
+    assert {"sim", "replicated-sim"} <= set(tstores.registered_stores())
     for name in jstores.registered_stores():
         assert tstores.is_simulated(name) == jstores.is_simulated(name)
 
@@ -229,15 +226,58 @@ def test_build_store_builds_the_same_classes(backend, cls, delay, batching):
 
 
 def test_simulated_and_unknown_backends_are_refused():
-    for backend in ("sim", "replicated-sim", "nope"):
+    """A simulated backend without ``sim=`` raises the reference's
+    ValueError; an unknown name still raises KeyError."""
+    for backend in ("sim", "replicated-sim"):
+        msgs = []
+        for stores in (tstores, jstores):
+            with pytest.raises(ValueError, match="needs sim=") as e:
+                stores.build_store(stores.StoreConfig(backend=backend))
+            msgs.append(str(e.value))
+        assert msgs[0] == msgs[1]
+    for stores in (tstores, jstores):
         with pytest.raises(KeyError, match="registered: file, memory, "
-                                           "replicated"):
-            tstores.build_store(tstores.StoreConfig(backend=backend))
-    with pytest.raises(KeyError, match="registered"):
-        tstores.is_simulated("nope")
-    for field in ("chaos_drop_p", "model", "topology", "lease_ms"):
-        with pytest.raises(TypeError):
-            tstores.StoreConfig(**{field: 1})
+                                           "replicated, replicated-sim, "
+                                           "sim"):
+            stores.build_store(stores.StoreConfig(backend="nope"))
+        with pytest.raises(KeyError, match="registered"):
+            stores.is_simulated("nope")
+
+
+@pytest.mark.parametrize("backend,kw", [
+    ("sim", {}), ("replicated-sim", {"replication": 3}),
+    ("replicated-sim", {"replication": 3, "mode": "coloc",
+                        "topology": "CROSS_REGION"})])
+def test_simulated_backends_build_the_reference_classes(backend, kw):
+    built = []
+    for core, stores in ((tcore, tstores), (jcore, jstores)):
+        args = dict(kw)
+        if "topology" in args:
+            args["topology"] = getattr(core, args["topology"])
+        store = stores.build_store(
+            stores.StoreConfig(backend=backend, seed=4, **args),
+            sim=core.Sim())
+        built.append(store)
+    t, j = built
+    assert type(t).__name__ == type(j).__name__
+    assert type(t).__name__ == {"sim": "SimStorage",
+                                "replicated-sim": "ReplicatedSimStorage"}[
+                                    backend]
+    for attr in ("n_replicas", "mode", "replica_regions", "op_timeout_ms",
+                 "lease_ms"):
+        assert getattr(t, attr, None) == getattr(j, attr, None), attr
+
+
+@pytest.mark.parametrize("knob", ["chaos_drop_p", "chaos_delay_ms",
+                                  "chaos_jitter_ms"])
+def test_chaos_knobs_wrap_in_chaos_store(knob):
+    for stores in (tstores, jstores):
+        store = stores.build_store(stores.StoreConfig(
+            backend="memory", seed=2, **{knob: 0.1}))
+        assert type(store).__name__ == "ChaosStore"
+        assert type(store.inner).__name__ == "MemoryStore"
+        plain = stores.build_store(stores.StoreConfig(backend="memory"))
+        assert type(plain).__name__ == "MemoryStore"
 
 
 def test_batching_store_coalesces_and_keeps_first_writer_wins():
@@ -431,6 +471,15 @@ def small(protocol, backend, **kw):
                 terminators=2, seed=5)
     base.update(kw)
     return WallclockConfig(**base)
+
+
+def test_rows_cover_table3():
+    rows = wallclock_rows()
+    assert set(rows) == {"2pc", "cornus", "cornus-opt1", "2pc-coloc",
+                         "cornus-coloc", "paxos-commit"}
+    for protocol, backend in rows.values():
+        assert backend in WALLCLOCK_BACKENDS.values()
+    assert rows == jthreaded.wallclock_rows()
 
 
 def test_wallclock_config_and_backends_match():
