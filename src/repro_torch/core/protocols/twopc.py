@@ -3,7 +3,12 @@ that *blocks* when the coordinator is down and no peer knows the decision
 (§2.1 — the failure mode Cornus exists to remove).
 
 The port's copy of ``repro/core/protocols/twopc.py`` (the standard library
-only; the port imports nothing of the JAX package).
+only; the port imports nothing of the JAX package), with one repair: a
+coordinator that is forcing its commit record answers a peer's decision
+request with "unknown" instead of presuming abort on its own behalf.  The
+reference's coordinator then decides ABORT for the peers and still reports
+COMMIT to its client (under the "rot" fault mix of ``core.chaos``, at
+R = 1, seeds 4352, 61 and 129, its history checker sees it).
 """
 from __future__ import annotations
 
@@ -34,6 +39,11 @@ class TwoPCProtocol(CommitProtocol):
         if decision == Decision.COMMIT:
             # 2PC: the commit record IS the ground truth — it must be
             # durable before replying to the caller (eager decision log).
+            # From here on this incarnation of the coordinator is bound to
+            # COMMIT, so a peer's decision request must not presume abort
+            # on its behalf while the write is in flight (see
+            # ``_serve_decision_request``).
+            self.ctx.local_state(me, txn)["committing"] = self.epoch(me)
             yield self.storage.log(me, txn, Vote.COMMIT, writer=me)
         else:
             # Presumed abort: the abort record need not be forced.
@@ -91,6 +101,11 @@ class TwoPCProtocol(CommitProtocol):
             st = self.ctx.local_state(server, txn)
             if st["decision"] is not None:
                 resp = st["decision"]
+            elif st.get("committing") == self.epoch(server):
+                # The coordinator is forcing its commit record: COMMIT is
+                # already chosen, only not yet durable.  Presuming abort
+                # here would decide both ways, so the asker keeps waiting.
+                resp = "UNKNOWN"
             elif st["status"] == "none":
                 # Never voted: unilaterally abort and answer ABORT.
                 if self.participant_logs:

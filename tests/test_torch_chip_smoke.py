@@ -1001,3 +1001,43 @@ def test_sim_phase_holds_the_port_to_the_pinned_values():
     CPU (it runs no tensor): the port's values equal the pinned ones."""
     got = chip_smoke.sim_phase("cpu")
     assert got == chip_smoke.SIM_PINNED
+
+
+# ---------------------------------------------------------------------------
+# Phase 26b: the "rot" fault mix
+# ---------------------------------------------------------------------------
+def test_rot_pinned_values_are_the_reference_s():
+    """Every value phase 26b pins is what the JAX package computes for the
+    same cells."""
+    import repro.core as jcore
+    import repro.txn as jtxn
+
+    assert chip_smoke.rot_values(jcore, jtxn) == chip_smoke.ROT_PINNED
+
+
+def test_rot_run_is_the_gc_safety_twin_s():
+    """Phase 26b's cells and its copy of benchmarks/chaos.run_one are the
+    ones tests/test_torch_gc_safety.py holds against the reference."""
+    from test_torch_gc_safety import REPAIRED_SEEDS, ROT_CELLS, chaos_run_one
+
+    from repro_torch import core, txn
+
+    assert list(chip_smoke.ROT_CELLS) == ROT_CELLS
+    assert sorted(chip_smoke.ROT_REPAIRED_SEEDS) == sorted(REPAIRED_SEEDS)
+    for proto, replication, seed, horizon in (("2pc", 3, 1, 300.0),
+                                              ("2pc", 1, 61, 200.0)):
+        got = chip_smoke.rot_run(core, txn, proto, replication, seed, horizon)
+        r, _s, _c = chaos_run_one(proto, "rot", replication, seed, horizon)
+        assert got == (r.commits, r.aborts, r.avg_latency_ms, r.violations,
+                       r.gc_truncations)
+
+
+def test_rot_phase_holds_the_port_to_the_pinned_values():
+    """Phase 26b as the script runs it, here on the CPU: the pinned cells
+    equal the reference's and the repaired seeds certify."""
+    got = chip_smoke.rot_phase("cpu")
+    assert {k: got[k] for k in chip_smoke.ROT_PINNED} == chip_smoke.ROT_PINNED
+    repaired = {k: v for k, v in got.items() if k.startswith("rot-repaired/")}
+    assert len(repaired) == len(chip_smoke.ROT_REPAIRED_SEEDS)
+    for commits, _aborts, _avg, violations, gc_n in repaired.values():
+        assert violations == 0 and commits > 0 and gc_n > 0

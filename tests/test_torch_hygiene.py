@@ -7,6 +7,7 @@ tests build their large meshes on is test-only), and no library attention
 or ``torch.compile`` stands in for its kernels.
 """
 import ast
+import textwrap
 from pathlib import Path
 
 import pytest
@@ -171,3 +172,48 @@ def test_the_dry_run_runs_on_meta_and_allocates_nothing():
     assert {dev for _, dev, _ in seen.off_meta} <= {"cpu"}, seen.off_meta
     assert sum(n for _, _, n in seen.off_meta) < 4096, seen.off_meta
     assert not torch.cuda.is_initialized()
+
+
+# ---------------------------------------------------------------------------
+# The commit core's twins and the lifecycle twin's kill -9 child
+# ---------------------------------------------------------------------------
+# Twins of the reference's commit-core suites: they import the port's
+# ``core`` / ``txn`` (standard library only), never torch.
+CORE_TWINS = ("test_torch_gc_safety.py", "test_torch_lifecycle.py",
+              "test_torch_store_api.py", "test_torch_replicated_store.py")
+CORE_PACKAGES = ("repro_torch.core", "repro_torch.txn")
+
+
+@pytest.mark.parametrize("name", CORE_TWINS)
+def test_commit_core_twins_import_no_torch(name):
+    path = ROOT / "tests" / name
+    mods = [mod for _, mod in _imports(ast.parse(path.read_text()))]
+    assert not [m for m in mods if m.split(".")[0] == "torch"], mods
+    port = [m for m in mods if m.split(".")[0] == "repro_torch"]
+    assert port and all(any(m == p or m.startswith(p + ".")
+                            for p in CORE_PACKAGES) for m in port), port
+
+
+def test_the_kill_child_imports_the_port_core_only():
+    """The kill -9 writer's child script imports the standard library and
+    ``repro_torch.core`` alone, and those imports load neither torch,
+    numpy, JAX nor the JAX package."""
+    import subprocess
+    import sys
+
+    from test_torch_lifecycle import _KILL_SCRIPT
+    script = _KILL_SCRIPT.format(src=str(ROOT / "src"), root="/nonexistent",
+                                 mode="log")
+    mods = {mod for _, mod in _imports(ast.parse(script))}
+    assert {m for m in mods if m.split(".")[0] not in ("os", "sys",
+                                                       "threading")} \
+        == {"repro_torch.core", "repro_torch.core.storage"}
+    header = script[:script.index("root = ")]
+    probe = header + textwrap.dedent("""\
+        print(sorted({m.split(".")[0] for m in sys.modules}
+                     & {"torch", "numpy", "jax", "jaxlib", "repro"}))
+    """)
+    out = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"

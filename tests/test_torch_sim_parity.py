@@ -154,13 +154,25 @@ GRID = {
 }
 
 
+# The one cell that the port's 2PC repair moves (ROADMAP "Deliberate
+# divergences"), by field: the port's value minus the reference's.  At the
+# storm-tight 3 ms timeouts a participant asks the coordinator for the
+# decision while it forces its commit record; the reference's coordinator
+# presumes abort (one ABORT write, its own decision ABORT) and still
+# reports COMMIT to its client, while the port's answers "unknown" and the
+# participant learns COMMIT when it asks again.  Every other field is equal.
+REPAIR_MOVES = {"sim-storm-2pc-lanes": {"storage_requests": -1}}
+
+
 @pytest.mark.parametrize("cell", sorted(GRID))
 def test_bench_results_are_equal(cell):
     wl, model, cfg = GRID[cell]
     t, j = (_bench(core, txn, wl, model, cfg) for core, txn in PACKAGES)
     assert list(t) == list(j)
+    moved = REPAIR_MOVES.get(cell, {})
     for key in j:
-        assert t[key] == j[key], key
+        want = j[key] + moved[key] if key in moved else j[key]
+        assert t[key] == want, key
     assert t["commits"] > 0
 
 
