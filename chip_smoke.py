@@ -160,13 +160,14 @@ Phases, each of which must pass (any failure exits non-zero):
      value equal to the JAX package's (``SIM_PINNED``, sim ms); the Fig 5
      speedups with their verdicts against tests/test_paper_bands.py's
      bands; it launches no kernel;
- 26b. the "rot" fault mix on the card's host (``rot_phase``): the chaos
-     cell of tests/test_torch_gc_safety.py (``rot_run``, a copy of
-     benchmarks/chaos.run_one) on the port for each ``ROT_CELLS`` entry
-     and for the three 2PC seeds that the port's repair certifies
-     (``ROT_REPAIRED_SEEDS``); each must have no violation, commits and
-     GC truncations, and each ``ROT_CELLS`` value equals the JAX
-     package's (``ROT_PINNED``); it launches no kernel;
+ 26b. chaos cells on the card's host (``rot_phase``): the chaos cell of
+     tests/test_torch_gc_safety.py (``chaos_cell``, a copy of
+     benchmarks/chaos.run_one) on the port for each "rot"-mix
+     ``ROT_CELLS`` entry and for each 2PC cell where the reference
+     decides both ways and the port's 2PC must not (``REPAIRED_CELLS``:
+     mix, R, seed, horizon); each must have no violation and commits, and
+     under "rot" GC truncations, and each ``ROT_CELLS`` value equals the
+     JAX package's (``ROT_PINNED``); it launches no kernel;
 then one ``{"kernels": [...]}`` line, whose launches are those of every
 served path's counted wave (phases 5, 8, 10, 14, 18, 20, 23), of the
 training runs (phases 11 and 11b), of the engine runs (phase 24) and of
@@ -409,14 +410,19 @@ SIM_FIG5_BANDS = {"redis": (1.05, 1.5), "blob": (1.2, 1.95)}
 # (protocol, R, seed; horizon 300 sim ms), each held to the JAX package's
 # (commits, aborts, avg, violations, GC truncations) with ``==``
 # (tests/test_torch_chip_smoke.py re-derives each from the JAX package);
-# and the 2PC seeds at R = 1, horizon 200, where the reference decides
-# both ways and the port's 2PC, which does not presume abort for a
-# coordinator forcing its commit record, must certify.
+# and the 2PC cells (mix, R, seed, horizon) where the reference decides
+# both ways, or tells a client COMMIT while a node decided ABORT, and the
+# port's 2PC must certify: tests/test_torch_gc_safety.py's REPAIRED and
+# SILENT_SPLITS.
 ROT_CELLS = (("cornus", 3, 0), ("cornus", 3, 3), ("cornus", 3, 5),
              ("2pc", 1, 8), ("cornus", 1, 2), ("2pc", 3, 1))
 ROT_HORIZON_MS = 300.0
-ROT_REPAIRED_SEEDS = (4352, 61, 129)
-ROT_REPAIRED_HORIZON_MS = 200.0
+REPAIRED_CELLS = (("rot", 1, 4352, 200.0), ("rot", 1, 61, 200.0),
+                  ("rot", 1, 129, 200.0), ("rot", 1, 548, 200.0),
+                  ("rot", 3, 254, 200.0), ("rot", 1, 599, 200.0),
+                  ("messages", 1, 5, 200.0), ("torn", 3, 22, 200.0),
+                  ("crash", 3, 42, 200.0), ("rot", 1, 32, 200.0),
+                  ("messages", 1, 4, 200.0))
 ROT_PINNED = {
     "rot/cornus/r3/s0": (217, 8, 11.302681516948704, 0, 799),
     "rot/cornus/r3/s3": (213, 8, 11.419369515844915, 0, 790),
@@ -2090,22 +2096,23 @@ def sim_phase(card: str) -> Dict[str, tuple]:
     return got
 
 
-def rot_run(core, txn, proto: str, replication: int, seed: int,
-            horizon_ms: float):
-    """One "rot"-mix chaos cell on one package's commit core, as
+def chaos_cell(core, txn, proto: str, mix: str, replication: int,
+               seed: int, horizon_ms: float):
+    """One chaos cell on one package's commit core, as
     benchmarks/chaos.run_one builds it (4 nodes, 2 clients a node, fresh
-    retry ids, history checked, checksums + GC + scrub armed): (commits,
-    aborts, avg caller latency in sim ms, violations, GC truncations)."""
+    retry ids, history checked; checksums + GC + scrub armed under the
+    "rot" mix): (commits, aborts, avg caller latency in sim ms,
+    violations, GC truncations)."""
     nodes = list(SIM_NODES)
     sched = core.FaultSchedule.generate(
-        seed, nodes, horizon_ms, replication if replication > 1 else 0,
-        "rot")
+        seed, nodes, horizon_ms, replication if replication > 1 else 0, mix)
     cfg = txn.BenchConfig(
         protocol=proto, n_nodes=4, threads_per_node=2, horizon_ms=horizon_ms,
         seed=seed, replication=replication, retry_fresh_ids=True,
         chaos=sched, record_history=True,
-        lifecycle=dict(checksums=True, gc=True, scrub=True,
-                       gc_interval_ms=25.0, scrub_interval_ms=40.0))
+        lifecycle=(dict(checksums=True, gc=True, scrub=True,
+                        gc_interval_ms=25.0, scrub_interval_ms=40.0)
+                   if mix == "rot" else None))
     r = txn.run_bench(lambda nodes, seed: txn.YCSBWorkload(nodes,
                                                            seed=seed),
                       core.AZURE_REDIS, cfg)
@@ -2116,32 +2123,34 @@ def rot_run(core, txn, proto: str, replication: int, seed: int,
 def rot_values(core, txn) -> Dict[str, tuple]:
     """Phase 26b's ``ROT_CELLS`` on one package, keyed as ``ROT_PINNED``."""
     return {f"rot/{proto}/r{replication}/s{seed}":
-            rot_run(core, txn, proto, replication, seed, ROT_HORIZON_MS)
+            chaos_cell(core, txn, proto, "rot", replication, seed,
+                       ROT_HORIZON_MS)
             for proto, replication, seed in ROT_CELLS}
 
 
 def rot_phase(card: str) -> Dict[str, tuple]:
     """Phase 26b: ``rot_values`` on the port, each held to ``ROT_PINNED``
-    with ``==``, then the repaired 2PC seeds; every cell must have no
-    violation, commits and GC truncations.  Prints each cell and the
-    phase's wall seconds beside the card."""
+    with ``==``, then the repaired 2PC cells; every cell must have no
+    violation and commits, and under "rot" GC truncations.  Prints each
+    cell and the phase's wall seconds beside the card."""
     from repro_torch import core, txn
     t0 = time.perf_counter()
     got = rot_values(core, txn)
-    for seed in ROT_REPAIRED_SEEDS:
-        got[f"rot-repaired/2pc/r1/s{seed}"] = rot_run(
-            core, txn, "2pc", 1, seed, ROT_REPAIRED_HORIZON_MS)
+    for mix, replication, seed, horizon in REPAIRED_CELLS:
+        got[f"repaired/2pc/{mix}/r{replication}/s{seed}"] = chaos_cell(
+            core, txn, "2pc", mix, replication, seed, horizon)
     wall = time.perf_counter() - t0
     for key, want in ROT_PINNED.items():
         check(got[key] == want, f"phase 26b {key}: {got[key]!r} != {want!r}")
     for key, (commits, _aborts, _avg, violations, gc_n) in got.items():
-        check(violations == 0 and commits > 0 and gc_n > 0,
+        rot = key.startswith("rot/") or "/rot/" in key
+        check(violations == 0 and commits > 0 and (gc_n > 0 or not rot),
               f"phase 26b {key}: {violations} violations, {commits} "
               f"commits, {gc_n} GC truncations")
         log(f"[rot] {key}: commits {commits}, violations {violations}, "
             f"gc truncations {gc_n}")
     log(f"[rot] phase 26b: {len(ROT_PINNED)} cells equal to the JAX "
-        f"package's, {len(ROT_REPAIRED_SEEDS)} repaired 2PC seeds "
+        f"package's, {len(REPAIRED_CELLS)} repaired 2PC cells "
         f"certified; {wall:.3f} s wall on the host of {card}")
     return got
 

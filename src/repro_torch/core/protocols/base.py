@@ -83,6 +83,9 @@ class CommitProtocol:
     #                           before replying (2PC's latency cost)
     vote_via_log_once: bool = True
     eager_decision_record: bool = False
+    # Does ``recover`` decide what its decision write answers (the slot's
+    # first decision) rather than what it asked to write?
+    decision_from_log: bool = False
 
     def __init__(self, transport: Transport, storage, ctx: TxnContext,
                  cfg: ProtocolConfig):
@@ -179,7 +182,10 @@ class CommitProtocol:
             return out
 
         # ---- decision point (strategy: who logs it, and when) -------------
-        yield from self.log_decision(spec, me, decision)
+        # A strategy may turn the decision to ABORT here (2PC: its node
+        # already presumed abort in this attempt); None keeps it.
+        decision = (yield from self.log_decision(spec, me, decision)) \
+            or decision
         if not self.live(me, ep):
             return out
 
@@ -364,7 +370,8 @@ class CommitProtocol:
         yield
 
     def log_decision(self, spec: TxnSpec, me: str, decision: Decision):
-        """Coordinator's decision point, BEFORE replying to the caller.
+        """Coordinator's decision point, BEFORE replying to the caller;
+        may return the decision that replaces ``decision`` (None keeps it).
         Cornus-family: nothing (the latency win)."""
         yield from ()
 
@@ -467,9 +474,14 @@ class CommitProtocol:
             d = yield from self.recovery_resolve(spec, me, out, state)
             out.decision = d if d else Decision.UNDETERMINED
             if d and self.participant_logs:
-                yield self.storage.log(
+                got = yield self.storage.log(
                     me, txn, Vote.COMMIT if d == Decision.COMMIT
                     else Vote.ABORT, writer=me)
+                if (self.decision_from_log and isinstance(got, Vote)
+                        and got.is_decision()):
+                    # The slot already held the other decision (a dead
+                    # incarnation's record landed first): that one stands.
+                    out.decision = Decision(got.value)
         if out.decision != Decision.UNDETERMINED:
             self.ctx.decide(me, txn, out.decision)
         out.done_at_ms = self.sim.now

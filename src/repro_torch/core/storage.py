@@ -3347,6 +3347,30 @@ class ReplicatedSimStorage(_DecisionCacheMixin):
 
         return (forward.region, cb)
 
+    def _answered_decision(self, state: Vote, answers) -> Optional[Vote]:
+        """What a plain ``log`` of ``state`` answers, given the replicas'
+        answers: ``state`` when none holds the other decision; the other
+        decision when a quorum of the answers hold it (``ReplicaLog.write``
+        refused the flip there: decisions are irreversible, Lemma 1); None
+        when fewer do, and then the slot's decision is what a quorum read
+        merges.  No correct run writes the opposite decision, so none sees
+        the difference."""
+        if not state.is_decision():
+            return state
+        other = [v for v in answers if isinstance(v, Vote)
+                 and v.is_decision() and v != state]
+        if not other:
+            return state
+        return other[0] if len(other) >= self.quorum else None
+
+    def _read_back(self, op: _BatchOp, src_region: str,
+                   self_idx: Optional[int]):
+        """Answer a batched plain ``log`` whose replicas split on the
+        slot's decision with what a quorum read merges."""
+        op.result = yield from self._quorum_read(src_region, self_idx,
+                                                 op.key)
+        op.done.trigger(op.result)
+
     def _quorum_write(self, src_region: str, self_idx: Optional[int],
                       key, state: Vote, writer: str, mean_ms: float):
         g = self._gens.get(key, 1) + 1   # owner-assigned LSN (single writer)
@@ -3357,7 +3381,11 @@ class ReplicatedSimStorage(_DecisionCacheMixin):
                 lambda r, i: r.write(key, state, g, writer), mean_ms,
                 lambda rs: len(rs) >= self.quorum, self_idx)
             if len(resps) >= self.quorum:
-                return state
+                got = self._answered_decision(state, [v for _, v in resps])
+                if got is None:
+                    got = yield from self._quorum_read(src_region, self_idx,
+                                                       key)
+                return got
             yield self.sim.timeout(self._backoff(1))
 
     def _quorum_read(self, src_region: str, self_idx: Optional[int], key):
@@ -3507,7 +3535,12 @@ class ReplicatedSimStorage(_DecisionCacheMixin):
                                                            op.writer),
                                self.model.plain_write_ms, self_idx)
                     self._gens[op.key] = max(self._gens.get(op.key, 1), 1)
-                op.result = op.state
+                op.result = (op.state if op.kind == "log_once"
+                             else self._answered_decision(
+                                 op.state, [vals[idx] for _, vals in resps]))
+                if op.result is None:
+                    self.sim.process(self._read_back(op, src, self_idx))
+                    continue
                 op.done.trigger(op.result)
                 if (self.mode == "leader" and op.fwd is not None
                         and not op.fwd.fired):

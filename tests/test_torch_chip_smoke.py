@@ -1018,16 +1018,21 @@ def test_rot_pinned_values_are_the_reference_s():
 def test_rot_run_is_the_gc_safety_twin_s():
     """Phase 26b's cells and its copy of benchmarks/chaos.run_one are the
     ones tests/test_torch_gc_safety.py holds against the reference."""
-    from test_torch_gc_safety import REPAIRED_SEEDS, ROT_CELLS, chaos_run_one
+    from test_torch_gc_safety import (REPAIRED, ROT_CELLS, SILENT_SPLITS,
+                                      chaos_run_one)
 
     from repro_torch import core, txn
 
     assert list(chip_smoke.ROT_CELLS) == ROT_CELLS
-    assert sorted(chip_smoke.ROT_REPAIRED_SEEDS) == sorted(REPAIRED_SEEDS)
-    for proto, replication, seed, horizon in (("2pc", 3, 1, 300.0),
-                                              ("2pc", 1, 61, 200.0)):
-        got = chip_smoke.rot_run(core, txn, proto, replication, seed, horizon)
-        r, _s, _c = chaos_run_one(proto, "rot", replication, seed, horizon)
+    assert sorted((m, r, s) for m, r, s, _h in chip_smoke.REPAIRED_CELLS) \
+        == sorted(list(REPAIRED) + list(SILENT_SPLITS))
+    assert {h for *_c, h in chip_smoke.REPAIRED_CELLS} == {200.0}
+    for proto, mix, replication, seed, horizon in (
+            ("2pc", "rot", 3, 1, 300.0), ("2pc", "rot", 1, 61, 200.0),
+            ("2pc", "messages", 1, 5, 200.0)):
+        got = chip_smoke.chaos_cell(core, txn, proto, mix, replication, seed,
+                                    horizon)
+        r, _s, _c = chaos_run_one(proto, mix, replication, seed, horizon)
         assert got == (r.commits, r.aborts, r.avg_latency_ms, r.violations,
                        r.gc_truncations)
 
@@ -1037,7 +1042,8 @@ def test_rot_phase_holds_the_port_to_the_pinned_values():
     equal the reference's and the repaired seeds certify."""
     got = chip_smoke.rot_phase("cpu")
     assert {k: got[k] for k in chip_smoke.ROT_PINNED} == chip_smoke.ROT_PINNED
-    repaired = {k: v for k, v in got.items() if k.startswith("rot-repaired/")}
-    assert len(repaired) == len(chip_smoke.ROT_REPAIRED_SEEDS)
-    for commits, _aborts, _avg, violations, gc_n in repaired.values():
-        assert violations == 0 and commits > 0 and gc_n > 0
+    repaired = {k: v for k, v in got.items() if k.startswith("repaired/")}
+    assert len(repaired) == len(chip_smoke.REPAIRED_CELLS)
+    for key, (commits, _aborts, _avg, violations, gc_n) in repaired.items():
+        assert violations == 0 and commits > 0
+        assert gc_n > 0 or "/rot/" not in key

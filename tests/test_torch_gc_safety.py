@@ -18,18 +18,29 @@ Three property families from the lifecycle design:
      no scrub repair, state transfer, or late LogOnce can bring a
      conflicting value back: the GC journal's decision is the tombstone.
 
-``benchmarks/`` belongs to the reference, so ``chaos_run_one`` below is
-its own copy of ``benchmarks/chaos.run_one`` built from the port's
-``FaultSchedule``, ``BenchConfig`` and ``run_bench``;
+``benchmarks/`` belongs to the reference, so ``chaos_run_one`` (in
+``tests/twopc_scan.py``) is the port's copy of ``benchmarks/chaos.run_one``
+built from the port's ``FaultSchedule``, ``BenchConfig`` and ``run_bench``;
 ``test_chaos_run_one_matches_the_reference`` holds it to the reference's
 with ``==``, field by field, and the anti-resurrection and ``MemoryStore``
 cases also run on the JAX package's stores and compare.
 
-One deliberate divergence: the port's 2PC does not presume abort on behalf
-of a coordinator that is forcing its commit record (ROADMAP "Deliberate
-divergences").  Under the "rot" mix the reference decides both ways at
-2PC, R = 1, seeds 4352, 61 and 129; the port certifies them, and
-``test_rot_mix_repaired_seeds_diverge_from_reference`` holds both sides.
+Deliberate divergences (ROADMAP "Deliberate divergences"): the port's
+2PC does not decide both ways where the reference's does.  Its rules:
+  * a node forcing its commit record or its YES vote answers a peer's
+    decision request "unknown" instead of presuming abort;
+  * a node that presumed abort for an attempt votes ABORT in it, or, as
+    its coordinator, decides ABORT;
+  * a restarted coordinator whose dead incarnation was forcing its commit
+    record presumes abort through its own slot, and decides what the slot
+    answers (``recover`` likewise decides what its decision write
+    answers);
+  * a plain ``log`` on the replicated sim store answers the decision a
+    quorum of the slot's replicas holds.
+``REPAIRED`` pins, per chaos cell, the reference's violations and holds
+the port's at none (``test_rot_mix_repaired_seeds_diverge_from_reference``);
+``test_prop_twopc_mixes_certify`` draws 2PC cells of every fault mix, and
+the slow ``test_twopc_scan_certifies`` runs ``tests/twopc_scan.GRID``.
 These tests import no torch: the port's commit core is standard library
 only.
 """
@@ -49,11 +60,12 @@ import repro_torch.core.lifecycle as tlifecycle
 import repro_torch.core.state as tstate
 import repro_torch.core.storage as tstorage
 from benchmarks.chaos import run_one as reference_run_one
-from repro_torch.core import AZURE_REDIS, FaultSchedule, Vote
+from repro_torch.core import AZURE_REDIS, Vote
 from repro_torch.core.lifecycle import LifecycleConfig
 from repro_torch.core.protocols import registered_protocols
 from repro_torch.core.storage import MemoryStore, ReplicatedStore
 from repro_torch.txn import BenchConfig, YCSBWorkload, run_bench
+from twopc_scan import GRID, OTHER_MIXES, chaos_run_one, run_cell
 
 HAS_HYPOTHESIS, given, settings, st = hypothesis_or_stubs()
 # (storage, lifecycle, state) modules of each package's commit core.
@@ -67,42 +79,6 @@ ARMED = dict(checksums=True, gc=True, scrub=True,
 LIFECYCLE_KEYS = frozenset({"gc_truncations", "watermark_lag",
                             "scrub_repairs", "quarantines",
                             "corrupt_records", "torn_records"})
-
-# ---------------------------------------------------------------------------
-# The port's copy of benchmarks/chaos.run_one
-# ---------------------------------------------------------------------------
-# The keys a repro bundle's config carries (benchmarks/chaos.CONFIG_KEYS).
-CONFIG_KEYS = ("protocol", "n_nodes", "threads_per_node", "horizon_ms",
-               "seed", "replication", "retry_fresh_ids", "lifecycle")
-# The "rot" mix arms durable-state faults, so the cell arms checksums + GC
-# + scrub for it (benchmarks/chaos.LIFECYCLE_MIXES / LIFECYCLE_CFG).
-LIFECYCLE_MIXES = ("rot",)
-LIFECYCLE_CFG = dict(checksums=True, gc=True, scrub=True,
-                     gc_interval_ms=25.0, scrub_interval_ms=40.0)
-
-
-def _wl(nodes, seed):
-    return YCSBWorkload(nodes, seed=seed)
-
-
-def chaos_run_one(proto: str, mix: str, replication: int, seed: int,
-                  horizon_ms: float):
-    """One chaotic cell on the port: generate the schedule, run, return
-    (res, schedule, bundle config)."""
-    nodes = [f"n{i}" for i in range(4)]
-    sched = FaultSchedule.generate(seed, nodes, horizon_ms,
-                                   replication if replication > 1 else 0,
-                                   mix)
-    cfg = BenchConfig(protocol=proto, n_nodes=4, threads_per_node=2,
-                      horizon_ms=horizon_ms, seed=seed,
-                      replication=replication, retry_fresh_ids=True,
-                      chaos=sched, record_history=True,
-                      lifecycle=(dict(LIFECYCLE_CFG)
-                                 if mix in LIFECYCLE_MIXES else None))
-    res = run_bench(_wl, AZURE_REDIS, cfg)
-    config = {k: getattr(cfg, k) for k in CONFIG_KEYS}
-    return res, sched, config
-
 
 def _foreground(res) -> dict:
     return {k: v for k, v in res.breakdown().items()
@@ -182,11 +158,25 @@ ROT_CELLS = [
     ("2pc", 1, 8),
     ("cornus", 1, 2), ("2pc", 3, 1),
 ]
-# 2PC, R = 1, horizon 200: seed -> the reference's violation count.  The
-# reference's coordinator, forcing its commit record when a participant's
-# cooperative-termination request arrives, presumes abort on its own
-# behalf and then still commits; the port's waits for its record.
-REPAIRED_SEEDS = {4352: 1, 61: 1, 129: 4}
+# 2PC, horizon 200: (mix, R, seed) -> the reference's violation count,
+# one cell for each path by which the reference decides both ways:
+#  - rot 4352, 61, 129: a coordinator forcing its commit record presumes
+#    abort on its own behalf, then commits;
+#  - rot 548 (R = 1) and 254 (R = 3): a restarted coordinator whose
+#    commit record landed presumes abort without reading it;
+#  - rot 599, messages 5, torn 22 (R = 3): a node forcing its YES vote
+#    presumes abort, then votes YES;
+#  - crash 42 (R = 3): a recovering coordinator ignores the COMMIT its
+#    presumed-abort write meets, and the replicated store answers ABORT
+#    over it.
+REPAIRED = {("rot", 1, 4352): 1, ("rot", 1, 61): 1, ("rot", 1, 129): 4,
+            ("rot", 1, 548): 4, ("rot", 3, 254): 4, ("rot", 1, 599): 4,
+            ("messages", 1, 5): 3, ("torn", 3, 22): 3, ("crash", 3, 42): 1}
+# 2PC cells where the reference reports no violation but its coordinator
+# told its client COMMIT while another node decided ABORT (the history
+# checker reads a node's live decision before its recorded outcome):
+# (mix, R, seed) -> the reference's client-acknowledgement violations.
+SILENT_SPLITS = {("rot", 1, 32): 1, ("messages", 1, 4): 1}
 
 
 @pytest.mark.parametrize("proto,replication,seed", ROT_CELLS)
@@ -219,18 +209,73 @@ if HAS_HYPOTHESIS:
         assert res.violations == 0, res.violation_details
 
 
-@pytest.mark.parametrize("seed", sorted(REPAIRED_SEEDS))
-def test_rot_mix_repaired_seeds_diverge_from_reference(seed):
-    """The one place the port parts from the reference on purpose: at
-    these seeds the reference's 2PC decides both ways under the "rot" mix
-    (its violation count is pinned here), and the port's certifies with
-    commits and GC truncations."""
-    ref, _s, _c = reference_run_one("2pc", "rot", 1, seed, horizon_ms=200.0)
-    assert ref.violations == REPAIRED_SEEDS[seed], ref.violation_details
-    res, _s, _c = chaos_run_one("2pc", "rot", 1, seed, horizon_ms=200.0)
+def _cell_id(mix: str, replication: int, seed: int) -> str:
+    # The first three repaired rot cells keep their ids (the seed alone).
+    if (mix, replication) == ("rot", 1) and seed in (4352, 61, 129):
+        return str(seed)
+    return f"{mix}-{replication}-{seed}"
+
+
+@pytest.mark.parametrize("mix,replication,seed",
+                         [pytest.param(*c, id=_cell_id(*c))
+                          for c in sorted(REPAIRED)])
+def test_rot_mix_repaired_seeds_diverge_from_reference(mix, replication,
+                                                       seed):
+    """Where the port parts from the reference on purpose: in these cells
+    the reference's 2PC decides both ways (its violation count is pinned
+    here), and the port's certifies, with commits, GC truncations under
+    "rot", and a clean client-acknowledgement check."""
+    ref, _s, _c = reference_run_one("2pc", mix, replication, seed,
+                                    horizon_ms=200.0)
+    assert ref.violations == REPAIRED[(mix, replication, seed)], \
+        ref.violation_details
+    res, ack, _blocked = run_cell("port", "2pc", mix, replication, seed)
     assert res.violations == 0, res.violation_details
+    assert ack == []
     assert res.commits > 0
-    assert res.gc_truncations > 0
+    if mix == "rot":
+        assert res.gc_truncations > 0
+
+
+@pytest.mark.parametrize("mix,replication,seed", sorted(SILENT_SPLITS))
+def test_silent_splits_are_repaired(mix, replication, seed):
+    """The reference's checker passes these cells, but its coordinator
+    told its client COMMIT while other nodes decided ABORT; the port's
+    client-acknowledgement check is clean."""
+    ref, ref_ack, _blocked = run_cell("reference", "2pc", mix, replication,
+                                      seed)
+    assert ref.violations == 0
+    assert len(ref_ack) == SILENT_SPLITS[(mix, replication, seed)], ref_ack
+    res, ack, _blocked = run_cell("port", "2pc", mix, replication, seed)
+    assert res.violations == 0 and ack == [], (res.violation_details, ack)
+    assert res.commits > 0
+
+
+if HAS_HYPOTHESIS:
+    @given(st.integers(min_value=0, max_value=100_000),
+           st.sampled_from(("rot",) + OTHER_MIXES),
+           st.sampled_from([1, 3]))
+    @settings(max_examples=8, deadline=None)
+    def test_prop_twopc_mixes_certify(seed, mix, replication):
+        """2PC under every fault mix of the scan, whose port cells all
+        certify: no violation and a clean client-acknowledgement check."""
+        res, ack, _blocked = run_cell("port", "2pc", mix, replication, seed)
+        assert res.violations == 0, res.violation_details
+        assert ack == []
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("proto,mix,replication", sorted(GRID))
+def test_twopc_scan_certifies(proto, mix, replication):
+    """The scan of ``tests/twopc_scan.py`` on the port, one (protocol,
+    mix, R) at a time: every seed certifies with a clean
+    client-acknowledgement check."""
+    bad = []
+    for seed in GRID[(proto, mix, replication)]:
+        res, ack, _blocked = run_cell("port", proto, mix, replication, seed)
+        if res.violations or ack:
+            bad.append((seed, res.violation_details[:1] + ack[:1]))
+    assert bad == []
 
 
 # Every ROT_CELLS entry at the regression tests' horizon, and a cell of
