@@ -64,6 +64,19 @@ Phases, each of which must pass (any failure exits non-zero):
      "model") mesh, llama3.2-1b's specs placed on it under each sharding
      profile, and one leaf redistributed by ``constrain`` through NCCL;
      the group is destroyed before phase 12;
+11c. llama3.2-1b at full width on DTensor parameters over the (1, 1)
+     NCCL mesh of ``make_host_mesh()``, under each sharding profile
+     (``sharded_step_phase``): in fp32 one train step of
+     ``steps.make_train_step(cfg, settings, rules)`` at step index 1 from
+     ``init_model(seed 0, rules=)``, its loss and every updated parameter
+     and moment held to the plain-tensor step's; in bf16 a prefill of
+     4 x 256 and 4 decode steps through the kernel path
+     (``make_prefill_step`` / ``make_decode_step`` under the rules), the
+     logits held to the same weights' plain-tensor kernel run, with
+     ``flash_attention`` and ``flash_decode`` launched on the DTensors'
+     local shards (path "llama3.2-1b sharded").  Bit for bit is
+     expected; a difference is printed and held to fp32 2e-5 / bf16
+     3e-2.  The group is destroyed after;
  12. one ``flash_attention`` and one ``flash_decode`` call under
      torch.profiler, each exactly one device kernel, and each scan call
      (one kernel; two for the ``mlstm_scan`` prefill: scores, then the
@@ -170,8 +183,8 @@ Phases, each of which must pass (any failure exits non-zero):
      JAX package's (``ROT_PINNED``); it launches no kernel;
 then one ``{"kernels": [...]}`` line, whose launches are those of every
 served path's counted wave (phases 5, 8, 10, 14, 18, 20, 23), of the
-training runs (phases 11 and 11b), of the engine runs (phase 24) and of
-phase 25a's counted calls.  The expert-parallel MoE
+training runs (phases 11 and 11b), of phase 11c's DTensor runs, of the
+engine runs (phase 24) and of phase 25a's counted calls.  The expert-parallel MoE
 (``moe._moe_expert_parallel``) does not run here: NCCL puts one rank on
 a card, and the script needs one card; tests/test_torch_moe_ep.py holds
 it on four CPU ranks.
@@ -342,6 +355,9 @@ TRAIN_RESUME_RTOL = 1e-5  # tests/test_train_loop.py:44-60
 # product q * scale can add: each within 2^-24 relative with |q| <= 127,
 # so under 2^-17 of the scale each.
 COMPRESS_STEP = 1
+# Phase 11c: the DTensor train step's batch x tokens (fp32), and the bf16
+# decode steps after the 4 x 256 prefill.
+SHARDED_TRAIN, SHARDED_DECODE_STEPS = (2, 512), 4
 COMPRESS_ERR_SLACK = 2.0 ** -16
 # Phase 25: flash_attention at the prefill_32k cell's 32,768 query tokens
 # (src/repro/models/config.py:192), held against the port's
@@ -1746,6 +1762,147 @@ def host_mesh_phase(torch, dev):
     return out
 
 
+def sharded_step_phase(torch, dev, cfg=None):
+    """Phase 11c: ``cfg`` (default llama3.2-1b at full width) on DTensor
+    parameters over the (1, 1) mesh of ``make_host_mesh()`` (NCCL on the
+    card, gloo on the CPU; a ``file://`` rendezvous), under each profile of
+    ``PROFILES``, against the same weights as plain tensors (see the module
+    docstring).  Returns the numbers it prints and the kernel launches of
+    the DTensor runs (counters set to 0 before the first, read after the
+    last; the plain runs they are held to are not counted)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import PROFILES, make_rules
+    from repro_torch.models import init_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    t_phase = time.perf_counter()
+    cfg = cfg or get_config(ARCH)
+    B, S = SHARDED_TRAIN
+    nb = make_pipeline(DataConfig(batch=B, seq_len=S,
+                                  vocab_size=cfg.vocab_size,
+                                  seed=0)).batch_at(COMPRESS_STEP)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in nb.items()}
+    # The trainer's settings (launch/train.py: AdamW lr 1e-3, decay 0.01),
+    # at step index 1, where the learning rate is above 0.
+    settings = steps.TrainSettings(remat="none", opt=AdamWConfig(
+        lr=1e-3, weight_decay=0.01), warmup=2, stable=10**6, decay=1)
+
+    def train(rules):
+        model = init_model(cfg, 0, device=dev, rules=rules)
+        opt = adamw_init(dict(model.named_parameters()), settings.opt)
+        _, _, loss = steps.make_train_step(cfg, settings, rules)(
+            model, opt, batch, COMPRESS_STEP)
+        leaves = {f"params/{n}": p.detach()
+                  for n, p in model.named_parameters()}
+        leaves.update({f"{k}/{n}": t for k in ("m", "v")
+                       for n, t in opt[k].items()})
+        return loss, leaves
+
+    def local(t):
+        return t.to_local() if hasattr(t, "to_local") else t
+
+    def served(model, rules):
+        """Prefill of BATCH x PROMPT and SHARDED_DECODE_STEPS decode steps,
+        each fed the plain run's greedy token: the logits, on the host."""
+        prompt = prompt_batch(cfg, BATCH, PROMPT, dev)
+        logits, cache = steps.make_prefill_step(cfg, MAX_LEN, rules)(
+            model, prompt)
+        out = [local(logits).float().cpu()]
+        decode = steps.make_decode_step(cfg, rules)
+        for i in range(SHARDED_DECODE_STEPS):
+            logits, cache = decode(model, {"tokens": tokens[i]}, cache,
+                                   PROMPT + i)
+            out.append(local(logits).float().cpu())
+        return out
+
+    def held(what, got, want, tol):
+        """Bit for bit, or the largest difference, held to ``tol``."""
+        err = max(float((g.float() - w.float()).abs().max())
+                  for g, w in zip(got, want))
+        exact = all(torch.equal(g, w) for g, w in zip(got, want))
+        check(err <= tol, f"[sharded] {what}: {err} > {tol}")
+        return {"exact": exact, "max_abs_err": err}
+
+    out = {"arch": cfg.name, "train_batch": [B, S], "profiles": {}}
+    torch.use_deterministic_algorithms(True)
+    try:
+        want_loss, want = train(None)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    # The plain bf16 kernel run, and the greedy tokens both runs are fed.
+    plain = init_model(cfg, 0, dtype=torch.bfloat16, device=dev)
+    tokens = []
+    prompt = prompt_batch(cfg, BATCH, PROMPT, dev)
+    with torch.inference_mode():
+        logits, cache, _ = plain.prefill(prompt, MAX_LEN)
+        want_served = [logits.float().cpu()]
+        for i in range(SHARDED_DECODE_STEPS):
+            tokens.append(logits[:, -1:, :cfg.vocab_size].argmax(-1))
+            logits, cache = plain.decode_step({"tokens": tokens[i]}, cache,
+                                              PROMPT + i)
+            want_served.append(logits.float().cpu())
+    del plain, cache
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl" if dev.type == "cuda" else "gloo",
+            init_method=f"file://{tmp}/rdzv", rank=0, world_size=1)
+        try:
+            mesh = make_host_mesh(device_type=str(dev))
+            ops.reset_launch_counts()
+            for profile in PROFILES:
+                rules = make_rules(mesh, profile)
+                t0 = time.perf_counter()
+                torch.use_deterministic_algorithms(True)
+                try:
+                    loss, got = train(rules)
+                finally:
+                    torch.use_deterministic_algorithms(False)
+                row = {"train_s": time.perf_counter() - t0}
+                names = sorted(want)
+                check(sorted(got) == names, f"[sharded] {profile}: leaves")
+                row["loss"] = [float(local(loss)), float(want_loss)]
+                row["train"] = held(
+                    f"{profile} train", [local(loss)] + [
+                        local(got[n]) for n in names],
+                    [want_loss] + [want[n] for n in names], TOL["float32"])
+                del got
+                t0 = time.perf_counter()
+                model = init_model(cfg, 0, dtype=torch.bfloat16, device=dev,
+                                   rules=rules)
+                row["serve"] = held(f"{profile} prefill + decode",
+                                    served(model, rules), want_served,
+                                    TOL["bfloat16"])
+                row["serve_s"] = time.perf_counter() - t0
+                del model
+                out["profiles"][profile] = row
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            launches = ops.launch_counts()
+        finally:
+            dist.destroy_process_group()
+    check(not dist.is_initialized(), "the process group outlived the phase")
+    if dev.type == "cuda":
+        want_launches = len(PROFILES) * cfg.n_layers
+        check(launches.get("flash_attention") == want_launches
+              and launches.get("flash_decode") == want_launches
+              * SHARDED_DECODE_STEPS,
+              f"[sharded] launches {launches}: the DTensor runs did not go "
+              f"through the attention kernels once a layer a pass")
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[sharded] {json.dumps(out)}")
+    return out, launches
+
+
 # ---------------------------------------------------------------------------
 # Phase 25: flash_attention at 32,768 query tokens; the cost pass on the card
 # ---------------------------------------------------------------------------
@@ -2832,6 +2989,8 @@ def run(torch) -> int:
     # -- 11b. the int8-compressed step beside the plain one; the host mesh ---
     _, compress_launches = compress_phase(torch, dev, card)
     host_mesh_phase(torch, dev)
+    # -- 11c. llama3.2-1b on DTensor parameters over the (1, 1) mesh --------
+    _, sharded_launches = sharded_step_phase(torch, dev)
 
     # -- 12. kernel times at the serving shapes -------------------------------
     # Timed with a cold L2, as the layers between two kernel calls leave it
@@ -2895,6 +3054,7 @@ def run(torch) -> int:
     # "launches_by_path" are filled in then.
     by_path = {ARCH: serve_launches, f"{ARCH} train": train_launches,
                f"{ARCH} train compressed": compress_launches,
+               f"{ARCH} sharded": sharded_launches,
                XLSTM: xlstm_launches,
                jcfg2.name: jamba_launches}
 

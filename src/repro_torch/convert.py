@@ -8,7 +8,8 @@ belongs to layer ``i * period + p``.  Leaves under ``rem{r}`` belong to
 layer ``n_periods * period + r``.  The rest of a key is the leaf's path in
 that layer's ``ParamTree``, at any depth.
 
-``params_from_numpy`` loads such a flat dict into a new ``LM``;
+``params_from_numpy`` loads such a flat dict into a new ``LM`` (with
+``rules``, of DTensor parameters, each rank copying in its own shard);
 ``numpy_from_params`` goes back (``ckpt.shards`` does the same for the
 whole training state, the AdamW moments included).  ``expert_block`` cuts
 one MoE layer's expert weights to what one rank of the expert-parallel MoE
@@ -20,14 +21,15 @@ This module imports no JAX: whoever holds the JAX tree flattens it.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Mapping, Tuple
+from typing import Dict, Iterable, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .device import resolve
+from .launch.sharding import Rules
 from .models.config import ModelConfig
-from .models.lm import LM
+from .models.lm import LM, local_part
 from .models.moe import EXPERT_LEAVES
 
 
@@ -88,10 +90,14 @@ def numpy_from_params(model: LM) -> Dict[str, np.ndarray]:
 
 
 def params_from_numpy(cfg: ModelConfig, flat: Mapping[str, np.ndarray], *,
-                      dtype=torch.float32, device="cuda") -> LM:
+                      dtype=torch.float32, device="cuda",
+                      rules: Optional[Rules] = None) -> LM:
     """A new ``LM`` holding the JAX parameters ``flat``; every parameter
-    must be covered exactly once."""
-    model = LM(cfg, dtype=dtype, device=resolve(device))
+    must be covered exactly once.  With ``rules``, each parameter is a
+    DTensor placed by ``rules.placements`` of its spec, as the JAX
+    package's ``NamedSharding`` places the leaf; this rank copies in its
+    shard of the array."""
+    model = LM(cfg, dtype=dtype, device=resolve(device), rules=rules)
     period = len(cfg.pattern)
     targets = {}                    # flat key (+ row) -> (parameter, array)
 
@@ -127,7 +133,11 @@ def params_from_numpy(cfg: ModelConfig, flat: Mapping[str, np.ndarray], *,
                        f"{missing}")
     with torch.no_grad():
         for param, arr in targets.values():
-            param.copy_(to_tensor(arr, param))
+            if rules is None:
+                param.copy_(to_tensor(arr, param))
+            else:
+                param.to_local().copy_(local_part(to_tensor(arr, param),
+                                                  param))
     return model
 
 

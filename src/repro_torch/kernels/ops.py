@@ -9,7 +9,10 @@ and falls back.
 ``(B,S,N,hd)`` layout of ``layers.attention``: a causal call (prefill,
 train) runs ``flash_attention``; a one-token decode call against the cache
 runs ``flash_decode``.  The head-major views it passes are transposes, not
-copies.
+copies.  On DTensors it runs them on each rank's local shards
+(``layers.attention_on_shards``).  The four kernel wrappers take local
+tensors only and raise ``TypeError`` on a DTensor, whose storage is not
+the tensor it stands for.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ from typing import Dict, Optional
 
 import torch
 
+from ..launch.sharding import is_dtensor
 from . import decode_attention, flash_attention as _fa, mamba_scan, \
     mlstm_scan, ref
 
@@ -25,9 +29,18 @@ def _on_cpu(t) -> bool:
     return t.device.type == "cpu"
 
 
+def _local_only(name: str, *tensors) -> None:
+    if any(is_dtensor(t) for t in tensors):
+        raise TypeError(
+            f"{name} takes local tensors, not a DTensor: run it on each "
+            f"rank's shards (ops.attention does, through "
+            f"layers.attention_on_shards)")
+
+
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
                     q_offset=0, kv_len=None):
     """q: (B,Hq,Sq,hd)  k,v: (B,Hkv,Skv,hd) -> (B,Hq,Sq,hd)."""
+    _local_only("flash_attention", q, k, v)
     if _on_cpu(q):
         return ref.attention_ref(q, k, v, causal=causal, window=window,
                                  softcap=softcap, q_offset=q_offset,
@@ -39,6 +52,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
 
 def flash_decode(q, k, v, kv_len: int, *, softcap=0.0):
     """q: (B,Hq,1,hd)  k,v: (B,Hkv,T,hd) -> (B,Hq,1,hd)."""
+    _local_only("flash_decode", q, k, v)
     if _on_cpu(q):
         return ref.attention_ref(q, k, v, causal=False, softcap=softcap,
                                  kv_len=kv_len)
@@ -50,7 +64,16 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
               kv_len: Optional[int] = None):
     """``layers.attention``'s contract, q:(B,S,Nq,hd) k,v:(B,T,Nkv,hd),
     computed by the kernels.  As in the JAX package, ``window`` applies only
-    with ``causal``."""
+    with ``causal``.  On DTensors, the kernels run on the local shards; a
+    decode cache cut on its sequence over several ranks is merged from
+    ``layers.attention_lse`` on the CPU and refused on the card, whose
+    kernels return no log-sum-exp."""
+    if is_dtensor(q):
+        from ..models.layers import attention_lse, attention_on_shards
+        return attention_on_shards(
+            attention, q, k, v, causal=causal, window=window, cap=cap,
+            q_offset=q_offset, kv_len=kv_len,
+            partial=attention_lse if _on_cpu(q) else None)
     qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if not causal and q.shape[1] == 1 and kv_len is not None:
         o = flash_decode(qh, kh, vh, kv_len, softcap=cap)
@@ -65,6 +88,7 @@ def selective_scan(u, dt, a, b, c, h0, *, out=None):
     fp32, b,c (B,S,N), h0 (B,di,N) fp32 -> (y (B,S,di) in u's dtype,
     h_last fp32).  ``out``, when given, receives h_last (it may be h0
     itself) and is returned."""
+    _local_only("selective_scan", u, dt, a, b, c, h0, out)
     if _on_cpu(u):
         y, h_last = ref.mamba_scan_ref(u, dt, a, b, c, h0)
         if out is not None:
@@ -81,6 +105,7 @@ def mlstm(q, k, v, i_gate, f_gate, c0, *, n0=None,
     normalizer: C's update with v = 1.  ``out`` and ``n_out``, when given,
     receive c_last and n_last (they may be c0 and n0 themselves) and are
     returned."""
+    _local_only("mlstm", q, k, v, i_gate, f_gate, c0, n0, out, n_out)
     if _on_cpu(q):
         if n0 is None and n_out is not None:
             raise ValueError("n_out needs n0")

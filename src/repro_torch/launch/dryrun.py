@@ -24,15 +24,27 @@ chips multi-pod, and writes the roofline inputs, one JSON a cell under
     The reference's are the partitioned program's.  The pass is the same
     for every layout of a cell, so ``main`` runs it once per arch x shape
     (``run_cell``'s ``costs``).
-  * Collective wire bytes a device, analytic from the rules' placements
-    (``analytic_collectives``), with the reference's ring factors
-    (``wire_bytes``): per parameter leaf an all-gather over the mesh dims
+  * Collective wire bytes a device, with the reference's ring factors
+    (``wire_bytes``).  For the archs whose every layer is attention with
+    a dense FFN (``counts_on_dtensors``), counted from the step itself
+    (``dtensor_collectives``): the step runs once more on ``meta``, on
+    DTensor parameters, inputs and optimizer state placed by the rules
+    over ``mesh.counting_mesh`` (a process group of the layout's size
+    whose collectives move nothing, started and destroyed by the pass),
+    and a ``CommDebugMode`` records every functional collective that
+    DTensor issues on rank 0, by kind, result bytes and group size: the
+    weight gathers, the tensor-parallel activation all-reduces (or, under
+    "sp", their reduce-scatters and all-gathers), the decode's merge over
+    the sequence-cut cache, and the gradient reductions.  For the other
+    archs (MoE, mamba, mLSTM, sLSTM layers, which the DTensor forward
+    does not run) the count is analytic from the parameters' placements
+    (``analytic_collectives``): per leaf an all-gather over the mesh dims
     that shard it in the forward; for train a second in the backward, a
     reduce-scatter of its gradient over them (int8 with
     ``settings.compress``), and an all-reduce over the batch dims it is
-    replicated on.  The tensor-parallel activation collectives and the
-    MoE all-to-all would need a forward on DTensor parameters, which the
-    port's model does not run: they are left out.
+    replicated on; no activation collective and no MoE all-to-all.  Each
+    collective kind's entry says which count it carries
+    (``counted_by``: "dtensor" or "analytic").
   * Memory a device: ``argument_bytes`` the exact local shard bytes of the
     step's inputs from the structs' placements (this rank's, the largest
     where a dim is cut ragged), ``output_bytes`` the step's outputs placed
@@ -69,11 +81,12 @@ from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import FlopCounterMode
 
 from ..configs import ALIASES, get_config
+from ..models.blocks import ATTN_KINDS
 from ..models.config import ALL_SHAPES, ModelConfig, ShapeConfig
-from ..models.lm import LM
+from ..models.lm import LM, layer_is_moe
 from ..optim import AdamWConfig
 from . import steps as S
-from .mesh import make_layout_mesh
+from .mesh import counting_mesh, make_layout_mesh
 from .sharding import Rules, make_rules
 
 DTYPE_BYTES = {
@@ -214,18 +227,19 @@ def step_specs(cfg: ModelConfig, shape: ShapeConfig,
 
 
 def step_call(cfg: ModelConfig, shape: ShapeConfig,
-              settings: "S.TrainSettings", specs: Dict, model: LM):
-    """(fn, args): the step of this shape's kind on ``model``, with
-    ``specs`` (``input_specs`` without rules, or tensors of their shapes)
-    as its inputs."""
+              settings: "S.TrainSettings", specs: Dict, model: LM,
+              rules: Optional[Rules] = None):
+    """(fn, args): the step of this shape's kind on ``model``, under
+    ``rules``, with ``specs`` (``input_specs``, or tensors of their
+    shapes) as its inputs."""
     if shape.kind == "train":
-        fn = S.make_train_step(cfg, settings)
+        fn = S.make_train_step(cfg, settings, rules)
         args = (model, specs["opt_state"], specs["batch"], specs["step"])
     elif shape.kind == "prefill":
-        fn = S.make_prefill_step(cfg, shape.seq_len)
+        fn = S.make_prefill_step(cfg, shape.seq_len, rules)
         args = (model, specs["batch"])
     else:
-        fn = S.make_decode_step(cfg)
+        fn = S.make_decode_step(cfg, rules)
         args = (model, specs["batch"], specs["cache"], specs["pos"])
     return fn, args
 
@@ -254,6 +268,90 @@ def cost_pass(cfg: ModelConfig, shape: ShapeConfig,
     return {"flops": int(counter.get_total_flops()), "flops_by_op": by_op,
             "bytes": int(traffic.bytes), "temp_bytes": int(traffic.peak),
             "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
+# Collectives counted from the step on DTensors
+# ---------------------------------------------------------------------------
+def counts_on_dtensors(cfg: ModelConfig) -> bool:
+    """Whether the dry run counts this arch's collectives from the step on
+    DTensors: every layer attention (global or local) with a dense FFN."""
+    return all(kind in ATTN_KINDS and not layer_is_moe(cfg, li)
+               for li, kind in enumerate(cfg.full_pattern))
+
+
+def _count_mode():
+    """A ``CommDebugMode`` that also keeps, for each functional collective
+    it sees, (kind, result bytes, group size)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+    f = torch.ops._c10d_functional
+    kinds = {f.all_reduce: "all-reduce",
+             f.all_gather_into_tensor: "all-gather",
+             f.reduce_scatter_tensor: "reduce-scatter",
+             f.all_to_all_single: "all-to-all"}
+
+    class Count(CommDebugMode):
+        def __init__(self):
+            super().__init__()
+            self.calls = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            kind = kinds.get(getattr(func, "_overloadpacket", None))
+            if kind is not None and out is not NotImplemented:
+                group = dist.distributed_c10d._resolve_process_group(
+                    args[-1])
+                self.calls.append((kind, _bytes(out.numel(), out.dtype),
+                                   group.size()))
+            return out
+
+    return Count()
+
+
+def collective_calls(cfg: ModelConfig, shape: ShapeConfig,
+                     settings: "S.TrainSettings", layout: tuple,
+                     profile: str = "default",
+                     dtype: torch.dtype = torch.bfloat16) -> list:
+    """The collectives of one step on rank 0 of the ``layout`` ((shape,
+    names) of the mesh), in order, as (kind, result bytes, group size):
+    the step runs on ``meta`` on an ``LM(..., rules=)`` of ``dtype``
+    DTensors and ``input_specs``' structs, all placed by
+    ``make_rules(mesh, profile)`` over ``mesh.counting_mesh(*layout)``,
+    whose group this pass starts and destroys.  Every collective the step
+    issues must be one of the four kinds read here."""
+    with counting_mesh(*layout) as mesh:
+        rules = make_rules(mesh, profile)
+        specs = S.input_specs(cfg, shape, rules, settings)
+        model = LM(cfg, dtype=dtype, device="meta", rules=rules)
+        model.plain_kernels = True
+        fn, args = step_call(cfg, shape, settings, specs, model, rules)
+        with _count_mode() as mode:
+            fn(*args)
+    seen = mode.get_total_counts()
+    if seen != len(mode.calls):
+        raise RuntimeError(f"{seen - len(mode.calls)} collectives of "
+                           f"another kind than {COLLECTIVES[:4]}: "
+                           f"{dict(mode.get_comm_counts())}")
+    return mode.calls
+
+
+def dtensor_collectives(cfg: ModelConfig, shape: ShapeConfig,
+                        settings: "S.TrainSettings", layout: tuple,
+                        profile: str = "default",
+                        dtype: torch.dtype = torch.bfloat16) -> Dict:
+    """Per-device collective bytes and counts of one step, by the
+    reference's keys, from ``collective_calls``.  A group of one moves
+    nothing and is not counted."""
+    out = {c: {"bytes": 0.0, "count": 0, "result_bytes": 0.0}
+           for c in COLLECTIVES}
+    for kind, res, g in collective_calls(cfg, shape, settings, layout,
+                                         profile, dtype):
+        if g > 1:
+            out[kind]["bytes"] += wire_bytes(kind, res, g)
+            out[kind]["count"] += 1
+            out[kind]["result_bytes"] += res
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -363,7 +461,17 @@ def run_cell(arch: str, shape: ShapeConfig, multi_pod: bool,
             "decode": ("params", "batch", "cache", "pos")}[shape.kind]
     donated = {"train": ("params", "opt_state"), "prefill": (),
                "decode": ("cache",)}[shape.kind]
-    coll = analytic_collectives(specs["params"], shape.kind, rules, settings)
+    if counts_on_dtensors(cfg):
+        coll = dtensor_collectives(
+            cfg, shape, settings,
+            (tuple(mesh.shape), tuple(mesh.mesh_dim_names)), profile)
+        counted_by = "dtensor"
+    else:
+        coll = analytic_collectives(specs["params"], shape.kind, rules,
+                                    settings)
+        counted_by = "analytic"
+    for entry in coll.values():
+        entry["counted_by"] = counted_by
     trips = cfg.n_periods - 1 if cfg.n_periods > 1 else 0
 
     rec.update(

@@ -14,10 +14,13 @@ The reference's ``auto_axis_types_kwargs`` shims jax versions without
 ``make_layout_mesh`` gives the production layouts with no process group
 of their size, for the dry run (``launch.dryrun``), which places meta
 tensors and so needs the mesh's shape, names and this rank's coordinate,
-and no communicator.
+and no communicator.  ``counting_mesh`` gives one over a process group of
+the layout's size whose collectives move nothing, for the dry run's count
+of the collectives that a step on DTensors issues.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import TYPE_CHECKING, Tuple
 
@@ -99,3 +102,50 @@ def layout_mesh(shape: Tuple[int, ...],
     finally:
         if started:
             dist.destroy_process_group()
+
+
+COUNTING_BACKEND = "layout"
+
+
+def _register_counting_backend() -> None:
+    """The ``COUNTING_BACKEND`` process group: torch's ``FakeProcessGroup``
+    (every collective returns at once, nothing moves), registered here
+    under a name of its own, since the package may not import
+    ``torch.testing``, which registers it as "fake"."""
+    import torch.distributed as dist
+    if hasattr(dist.Backend, COUNTING_BACKEND.upper()):
+        return
+    from torch._C._distributed_c10d import FakeProcessGroup
+
+    def create(common_opts, backend_opts):
+        rank, size = common_opts.group_rank, common_opts.group_size
+        make = getattr(FakeProcessGroup, "_create_internal", None)
+        if make is not None:
+            return make(rank, size, backend_opts)
+        return FakeProcessGroup(rank, size)
+
+    dist.Backend.register_backend(COUNTING_BACKEND, create,
+                                  extended_api=True, devices=["cpu"])
+
+
+@contextlib.contextmanager
+def counting_mesh(shape: Tuple[int, ...], names: Tuple[str, ...]):
+    """A CPU DeviceMesh of ``shape`` over a process group of its size whose
+    collectives move nothing (``COUNTING_BACKEND``), with this process as
+    rank 0.  DTensor ops on ``meta`` tensors over it issue the functional
+    collectives that rank 0 of a real run of that size would, which a
+    dispatch mode can count.  The group is started on an in-memory
+    ``HashStore`` and destroyed on exit; it needs none initialized."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    if dist.is_initialized():
+        raise RuntimeError("a counting mesh starts its own process group: "
+                           "destroy the initialized one first")
+    _register_counting_backend()
+    dist.init_process_group(COUNTING_BACKEND, store=dist.HashStore(),
+                            rank=0, world_size=math.prod(shape))
+    try:
+        yield init_device_mesh("cpu", tuple(shape),
+                               mesh_dim_names=tuple(names))
+    finally:
+        dist.destroy_process_group()

@@ -26,11 +26,22 @@ agree only while a tuple lists its axes in mesh order, as every rule here
 does, so ``placements`` refuses a tuple that does not.  GSPMD pads a dim
 that its axes do not divide; DTensor's ``Shard`` leaves the last shards
 short instead.
+
+The model runs on DTensor parameters placed by these rules (the port's
+counterpart of the reference's steps under ``use_rules``).  Its
+activations pass through ``constrain`` where the reference's do; tensors
+that every rank computes whole (positions, the batch) join the mesh
+through ``place``; and what runs on each rank's local shards (the
+attention, the cache writes) reads them with ``shard_offsets`` and
+``to_local`` and wraps its result with ``from_local``.  ``is_dtensor``
+tells the paths apart without importing DTensor on a model that never
+made one.
 """
 from __future__ import annotations
 
 import contextlib
 import math
+import sys
 import threading
 from dataclasses import dataclass, field
 from typing import (TYPE_CHECKING, Dict, Optional, Sequence, Tuple,
@@ -145,18 +156,88 @@ def use_rules(rules: Optional[Rules]):
 
 def constrain(x, axes: Sequence[Optional[str]]):
     """Redistribute a DTensor to the active rules' placements for ``axes``;
-    the identity with no active rules, and for a plain tensor."""
+    the identity with no active rules, and for a plain tensor.  A
+    parameter is ``frozen`` first."""
     rules = _active()
-    if rules is None:
+    if rules is None or not is_dtensor(x):
         return x
-    from torch.distributed.tensor import DTensor
-    if not isinstance(x, DTensor):
+    return frozen(x).redistribute(rules.mesh,
+                                  rules.placements(axes, x.shape))
+
+
+def frozen(x):
+    """``x``; with grad off, a DTensor that requires grad (a parameter)
+    re-wrapped over its own local tensor, which requires none.  Under
+    ``inference_mode`` DTensor fails on a parameter both ways: torch 2.11's
+    redistribution calls ``detach_``, which DTensor has no rule for, and
+    a view (``detach`` too) cannot set an inference tensor's version
+    counter."""
+    import torch
+    if not (is_dtensor(x) and x.requires_grad
+            and not torch.is_grad_enabled()):
         return x
-    return x.redistribute(rules.mesh, rules.placements(axes, x.shape))
+    return from_local(x.to_local(), x.device_mesh, x.placements, x.shape)
 
 
 def current_rules() -> Optional[Rules]:
     return _active()
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor; False, with nothing imported, in a
+    process that never imported DTensor."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+def place(t, axes: Sequence[Optional[str]], like):
+    """``t``, which every rank holds whole, on the mesh of the DTensor
+    ``like``: replicated (each rank keeps its copy, nothing moves), then
+    ``constrain``-ed to ``axes`` (a shard is a local slice).  ``t`` itself
+    when ``like`` is not a DTensor; a DTensor ``t`` is only constrained."""
+    if not is_dtensor(t):
+        if not is_dtensor(like):
+            return t
+        from torch.distributed.tensor import DTensor, Replicate
+        mesh = like.device_mesh
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    return constrain(t, axes)
+
+
+def shard_bounds(shape, mesh, placements):
+    """(offsets, sizes) of this rank's shard of a tensor of global
+    ``shape`` placed as ``placements``, per dim: each mesh dim in order
+    cuts what the ones before it left into ``torch.chunk``-sized pieces
+    (DTensor's rule; a ragged last shard may be short or empty)."""
+    from torch.distributed.tensor import Shard
+    coord = mesh.get_coordinate()
+    size, off = list(shape), [0] * len(shape)
+    for mdim, p in enumerate(placements):
+        if isinstance(p, Shard):
+            n, c = mesh.size(mdim), coord[mdim]
+            full = -(-size[p.dim] // n)
+            lo = min(size[p.dim], full * c)
+            off[p.dim] += lo
+            size[p.dim] = min(size[p.dim], full * (c + 1)) - lo
+    return tuple(off), tuple(size)
+
+
+def shard_offsets(x) -> Tuple[int, ...]:
+    """The global index of the first element of this rank's shard of the
+    DTensor ``x``, per dim."""
+    return shard_bounds(x.shape, x.device_mesh, x.placements)[0]
+
+
+def from_local(local, mesh, placements, shape):
+    """A DTensor of global ``shape`` (contiguous strides) whose shard on
+    this rank is ``local``, placed as ``placements``; no check and no
+    communication."""
+    from torch.distributed.tensor import DTensor
+    shape = tuple(shape)
+    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=shape, stride=stride)
 
 
 # Sharding profiles:

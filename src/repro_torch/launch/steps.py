@@ -10,6 +10,14 @@ backward kernel, and the port's kernels refuse inputs that require grad.
 With ``TrainSettings.compress`` set, the gradients pass through int8
 (``_compressed_allreduce``) before the update.
 
+Given ``rules``, each step runs under them (``use_rules``) on a model of
+DTensor parameters placed by them (``LM(..., rules=)``,
+``convert.params_from_numpy(..., rules=)``): the port's counterpart of the
+JAX package's steps under ``use_rules`` and jit.  The batch may hold plain
+tensors that every rank has whole; the model places them.  The gradients
+come back placed as their parameters, and AdamW updates each rank's
+shards.
+
 Plus per-shape ``input_specs``: everything a step takes, as ``meta``
 tensors (DTensors placed by the rules when rules are given) that allocate
 nothing, in the port's own layout: parameters and AdamW moments keyed by
@@ -36,7 +44,7 @@ from ..models.lm import (LM, cache_specs, init_cache, named_param_specs,
                          run_layers)
 from ..optim import (AdamWConfig, CompressionConfig, adamw_update,
                      compress_gradients, decompress_gradients, wsd_schedule)
-from .sharding import Rules, constrain, use_rules
+from .sharding import Rules, constrain, is_dtensor, use_rules
 
 
 @dataclass(frozen=True)
@@ -55,11 +63,14 @@ def loss_and_grads(model: LM, batch: Dict[str, torch.Tensor],
                    remat: str = "none"):
     """(loss, {parameter name: gradient}) of the training forward, on the
     plain path; the loss is detached and the parameters' ``.grad`` stay
-    untouched."""
+    untouched.  A DTensor parameter's gradient is placed as the parameter
+    (a partial sum over the ranks that shared it is reduced)."""
     params = dict(model.named_parameters())
     with torch.enable_grad():
         loss, _ = model.forward(batch, remat=remat, plain=True)
         grads = torch.autograd.grad(loss, list(params.values()))
+    grads = [g.redistribute(p.device_mesh, p.placements) if is_dtensor(g)
+             else g for p, g in zip(params.values(), grads)]
     return loss.detach(), dict(zip(params, grads))
 
 

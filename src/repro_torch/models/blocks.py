@@ -16,7 +16,14 @@ package pads to ``max_len``), a decode step writes at ``[:, pos:pos+S]``;
 the recurrent kinds ``copy_`` their new state into the cache tensors (or
 have the kernel write it there).
 The LM hands each layer views of the stacked cache, so returning a fresh
-tensor instead would leave the cache as it was.
+tensor instead would leave the cache as it was.  A DTensor cache, cut on
+its sequence dim, is written on each rank's own shard (``write_rows``).
+
+The attention block and the dense FFN constrain their activations where
+the JAX package's do (q, k, v, the attention output, the FFN's hidden
+activation, the layer's output), so on DTensor parameters they run as the
+JAX package's blocks do under its rules.  The recurrent kinds and the MoE
+take plain tensors only.
 """
 from __future__ import annotations
 
@@ -28,8 +35,11 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..launch.sharding import (constrain, from_local, is_dtensor,
+                               shard_offsets)
 from .config import ModelConfig
-from .layers import PSpec, attention, dense, rms_norm, rotate, swiglu
+from .layers import (DOWN_W, UP_W, PSpec, attention, dense, rms_norm,
+                     rotate, swiglu)
 from .moe import moe_apply, moe_specs
 
 SSM_CHUNK = 64      # mamba: tokens per associative-scan chunk (plain scan)
@@ -53,6 +63,14 @@ class Ctx:
     pos_offset: int = 0             # absolute position of x[0]
     max_len: int = 0                # cache capacity
     plain: bool = False             # plain PyTorch instead of the kernels
+
+
+# Q and the attention output: heads on the TP axis.  K and V stay
+# replicated on it (G x smaller than Q under GQA), as in the JAX package,
+# whose partitioner rematerialized them when they were sharded on another
+# dim than Q.
+HEAD_AXES = ("batch", None, "model", None)
+KV_REPLICATED = ("batch", None, None, None)
 
 
 # ===========================================================================
@@ -90,9 +108,16 @@ def attn_apply(cfg: ModelConfig, p: Mapping[str, torch.Tensor], x, ctx: Ctx):
     B, S, _ = x.shape
     nq, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    q = dense(h, p["wq"]).reshape(B, S, nq, hd)
-    k = dense(h, p["wk"]).reshape(B, S, nkv, hd)
-    v = dense(h, p["wv"]).reshape(B, S, nkv, hd)
+    q = _even_heads(dense(h, p["wq"], UP_W), nq).reshape(B, S, nq, hd)
+    k = _even_heads(dense(h, p["wk"], UP_W), nkv).reshape(B, S, nkv, hd)
+    v = _even_heads(dense(h, p["wv"], UP_W), nkv).reshape(B, S, nkv, hd)
+    # Decode replicates its one-token q and keeps the cache cut on its
+    # sequence (flash-decode): q on heads against a sequence-cut cache
+    # made the JAX package's partitioner gather the whole cache.
+    q = constrain(q, ("batch", None, None, None) if ctx.mode == "decode"
+                  else HEAD_AXES)
+    k = constrain(k, KV_REPLICATED)
+    v = constrain(v, KV_REPLICATED)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -103,8 +128,8 @@ def attn_apply(cfg: ModelConfig, p: Mapping[str, torch.Tensor], x, ctx: Ctx):
     cache = ctx.cache
     if ctx.mode == "decode":
         pos = ctx.pos_offset
-        cache["k"][:, pos:pos + S] = k          # in place (JAX: functional)
-        cache["v"][:, pos:pos + S] = v
+        write_rows(cache["k"], k, pos)          # in place (JAX: functional)
+        write_rows(cache["v"], v, pos)
         # causal=False: decode ignores a local layer's window, as the JAX
         # package does (the window applies only with causal).
         o = attend(q, cache["k"], cache["v"], causal=False, window=ctx.window,
@@ -113,12 +138,65 @@ def attn_apply(cfg: ModelConfig, p: Mapping[str, torch.Tensor], x, ctx: Ctx):
         o = attend(q, k, v, causal=True, window=ctx.window,
                    cap=cfg.attn_softcap)
         if ctx.mode == "prefill":
-            cache["k"][:, :S] = k               # the rest stays zero
-            cache["v"][:, :S] = v
-    out = dense(o.reshape(B, S, nq * hd), p["wo"])
+            write_rows(cache["k"], k, 0)        # the rest stays zero
+            write_rows(cache["v"], v, 0)
+    o = _merge_heads(constrain(o, HEAD_AXES), nq)
+    out = dense(o, p["wo"], DOWN_W)
     if cfg.post_norm:
         out = rms_norm(out, p["post_ln"], cfg.norm_eps)
     return out, cache
+
+
+def _even_heads(t, n: int):
+    """``t`` with dim 2 (n heads, or their n*hd values laid flat) cut only
+    where the cut falls between heads into equal parts: DTensor splits and
+    merges a cut dim only then.  Where the mesh dims that cut it do not
+    divide n (llama's 8 KV heads over 16), they are gathered first; a
+    plain tensor is returned as it is."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = t.device_mesh
+    cut = [d for d, q in enumerate(t.placements) if q == Shard(2)]
+    if n % math.prod(mesh.size(d) for d in cut) == 0:
+        return t
+    return t.redistribute(mesh, [Replicate() if d in cut else q
+                                 for d, q in enumerate(t.placements)])
+
+
+def _merge_heads(o, n: int):
+    """(B, S, n, hd) -> (B, S, n*hd).  A DTensor whose heads are not cut
+    (the rules' fallback, or ``_even_heads`` gathered them) is merged on
+    its local tensor: the gradient then arrives cut on the merged dim by
+    the projection after it, and is gathered before it is split back into
+    heads, which DTensor's view would refuse where the cut does not fall
+    between heads."""
+    B, S, _, hd = o.shape
+    o = _even_heads(o, n)
+    if not is_dtensor(o) or any(q.is_shard(2) for q in o.placements):
+        return o.reshape(B, S, n * hd)
+    local = o.to_local(grad_placements=o.placements)
+    return from_local(local.reshape(*local.shape[:2], n * hd),
+                      o.device_mesh, o.placements, (B, S, n * hd))
+
+
+def write_rows(cache: torch.Tensor, rows: torch.Tensor, pos: int) -> None:
+    """``cache[:, pos:pos + S] = rows`` in place.  A DTensor cache (cut on
+    its batch and sequence dims) takes on each rank the rows that fall in
+    that rank's own shard, from ``rows`` placed as the cache on the batch
+    dim: nothing is gathered, as the JAX package's
+    ``dynamic_update_slice`` on the sharded cache gathers nothing."""
+    S = rows.shape[1]
+    if not is_dtensor(cache):
+        cache[:, pos:pos + S] = rows
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    rows = rows.redistribute(cache.device_mesh, [
+        p if p == Shard(0) else Replicate() for p in cache.placements])
+    local, t0 = cache.to_local(), shard_offsets(cache)[1]
+    lo, hi = max(pos, t0), min(pos + S, t0 + local.shape[1])
+    if lo < hi:
+        local[:, lo - t0:hi - t0] = rows.to_local()[:, lo - pos:hi - pos]
 
 
 # ===========================================================================
@@ -495,7 +573,8 @@ def layer_apply(cfg: ModelConfig, kind: str, is_moe: bool, params, x,
     if "ffn" in params:
         ffn_out, aux = ffn_apply(cfg, params["ffn"], x, is_moe)
         x = x + _scaled(ffn_out, cfg.residual_scale)
-    return x, cache, aux
+    # "seq" maps to the TP axis only under the sp profile.
+    return constrain(x, ("batch", "seq", None)), cache, aux
 
 
 def _scaled(x, scale: float):

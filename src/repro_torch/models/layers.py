@@ -8,8 +8,13 @@ Conventions:
     over instead), and ``param_structs`` builds tensors on the ``meta``
     device, DTensors placed by ``launch.sharding`` rules, which allocate
     nothing.  A spec tree is a dict (or list) of ``PSpec`` and subtrees.
-  * The JAX package's activation annotations (``constrain``) are
-    identities on one device; the port's model code does not call them.
+  * The model code annotates its activations with ``launch.sharding.
+    constrain`` where the JAX package's does: the identity on plain
+    tensors, a redistribution of DTensors under active rules.  On a model
+    of DTensor parameters (``LM(..., rules=)``), ``dense`` gathers a
+    weight to its use-time placement (``UP_W`` / ``DOWN_W``), the rope
+    tables join the mesh replicated, and the attention runs on each rank's
+    local shards (``attention_on_shards``), where its masks are built.
   * ``attention`` is the plain, exact attention in the model's
     ``(B, S, N, hd)`` layout.  Above ``CHUNK_THRESHOLD`` query tokens it
     takes ``_chunked_attention``, the JAX package's online-softmax form
@@ -27,6 +32,9 @@ from typing import Any, Callable, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..launch.sharding import (constrain, from_local, is_dtensor, place,
+                               shard_bounds, shard_offsets)
 
 CHUNK_THRESHOLD = 8_192   # switch to chunked attention above this seq len
 Q_CHUNK = 2_048
@@ -61,23 +69,20 @@ def map_specs(fn: Callable[[PSpec], Any], tree):
     return [map_specs(fn, v) for v in tree]
 
 
-def struct(shape, dtype, rules, axes):
-    """A tensor of ``shape`` on the ``meta`` device (nothing allocated):
-    with ``rules``, a DTensor with that global shape, placed over
-    ``rules.mesh`` as ``rules.sharding(axes, shape)`` says, whose local
-    tensor is this rank's shard (a ragged last shard where the axes do not
-    divide the dim, as ``Shard`` cuts it).  The port's counterpart of a
-    ``jax.ShapeDtypeStruct`` with a ``NamedSharding``."""
+def struct(shape, dtype, rules, axes, device="meta"):
+    """A zeroed tensor of ``shape`` on ``device`` (on ``meta``, nothing
+    allocated): with ``rules``, a DTensor with that global shape, placed
+    over ``rules.mesh`` as ``rules.sharding(axes, shape)`` says, whose
+    local tensor is this rank's shard (a ragged last shard where the axes
+    do not divide the dim, as ``Shard`` cuts it).  The port's counterpart
+    of a ``jax.ShapeDtypeStruct`` with a ``NamedSharding``."""
     shape = tuple(shape)
     if rules is None:
-        return torch.empty(shape, dtype=dtype, device="meta")
-    from torch.distributed.tensor import DTensor
+        return torch.zeros(shape, dtype=dtype, device=device)
     mesh, placements = rules.sharding(axes, shape)
-    local = torch.empty(_local_shape(shape, mesh, placements), dtype=dtype,
-                        device="meta")
-    return DTensor.from_local(
-        local, mesh, placements, run_check=False, shape=shape,
-        stride=torch.empty(shape, device="meta").stride())
+    local = torch.zeros(shard_bounds(shape, mesh, placements)[1],
+                        dtype=dtype, device=device)
+    return from_local(local, mesh, placements, shape)
 
 
 def param_structs(spec_tree, rules, dtype=torch.bfloat16):
@@ -85,20 +90,6 @@ def param_structs(spec_tree, rules, dtype=torch.bfloat16):
     states' fp32) wins over ``dtype``."""
     return map_specs(lambda s: struct(s.shape, s.dtype or dtype, rules,
                                       s.axes), spec_tree)
-
-
-def _local_shape(shape, mesh, placements) -> Tuple[int, ...]:
-    """This rank's shard shape: each mesh dim in order cuts what the ones
-    before it left into ``torch.chunk``-sized pieces (DTensor's rule)."""
-    from torch.distributed.tensor import Shard
-    coord = mesh.get_coordinate()
-    out = list(shape)
-    for mdim, p in enumerate(placements):
-        if isinstance(p, Shard):
-            n, c, size = mesh.size(mdim), coord[mdim], out[p.dim]
-            full = -(-size // n)
-            out[p.dim] = max(0, min(size, full * (c + 1)) - full * c)
-    return tuple(out)
 
 
 def param_shardings(spec_tree, rules):
@@ -180,8 +171,11 @@ def _rope_freqs_on(hd: int, theta: float, device: torch.device):
 
 
 def rope_cos_sin(positions: torch.Tensor, hd: int, theta: float):
-    """(cos, sin) of the rotary angles, each (..., S, 1, hd/2) fp32."""
-    freqs = _rope_freqs_on(hd, float(theta), positions.device)
+    """(cos, sin) of the rotary angles, each (..., S, 1, hd/2) fp32; placed
+    as ``positions`` when they are a DTensor (the frequencies replicated
+    on its mesh)."""
+    freqs = place(_rope_freqs_on(hd, float(theta), positions.device),
+                  (None,), positions)
     ang = positions[..., None].float() * freqs               # (..., S, hd/2)
     return torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
 
@@ -208,7 +202,8 @@ def mrope_cos_sin(positions: torch.Tensor, hd: int, theta: float,
     of the section it falls in.  Returns (cos, sin), each (..., S, 1, hd/2)
     fp32, as ``rope_cos_sin``."""
     assert sum(sections) == hd // 2, (sections, hd)
-    freqs = _rope_freqs_on(hd, float(theta), positions.device)
+    freqs = place(_rope_freqs_on(hd, float(theta), positions.device),
+                  (None,), positions)
     # The stream each frequency dim reads, laid out along the last axis.
     sel = torch.cat([positions[i][..., None].expand(*positions.shape[1:], n)
                      for i, n in enumerate(sections)], dim=-1)
@@ -268,6 +263,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``CHUNK_THRESHOLD`` query tokens it takes ``_chunked_attention``;
     decode (one query token) never does.
     """
+    if is_dtensor(q):
+        return attention_on_shards(
+            attention, q, k, v, causal=causal, window=window, cap=cap,
+            q_offset=q_offset, kv_len=kv_len, partial=attention_lse)
     B, S, Nq, hd = q.shape
     T, Nkv = k.shape[1], k.shape[2]
     G = Nq // Nkv
@@ -287,6 +286,114 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bngst,btnh->bsngh", p.to(v.dtype), v)
     return o.reshape(B, S, Nq, hd)
+
+
+def attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  cap: float = 0.0, kv_len: Optional[int] = None):
+    """Non-causal attention (decode against a cache) and the log-sum-exp
+    of each query's scores: (o (B,S,Nq,hd), lse (B,S,Nq) fp32).  Keys at or
+    past ``kv_len`` (which may be 0 or less) are masked; with no key at
+    all, lse is -inf and o is zero."""
+    B, S, Nq, hd = q.shape
+    T, Nkv = k.shape[1], k.shape[2]
+    G = Nq // Nkv
+    qg = (q * (1.0 / math.sqrt(hd))).reshape(B, S, Nkv, G, hd)
+    s = softcap(torch.einsum("bsngh,btnh->bngst", qg.float(), k.float()),
+                cap)
+    if kv_len is not None:
+        s = s.masked_fill(~(torch.arange(T, device=q.device) < kv_len),
+                          -1e30)
+    lse = torch.logsumexp(s, dim=-1)                      # (B,Nkv,G,S)
+    p = torch.exp(s - lse[..., None])
+    o = torch.einsum("bngst,btnh->bsngh", p.to(v.dtype), v)
+    return o.reshape(B, S, Nq, hd), lse.permute(0, 3, 1, 2).reshape(B, S, Nq)
+
+
+def attention_on_shards(attend, q, k, v, *, causal: bool, window: int,
+                        cap: float, q_offset: int, kv_len: Optional[int],
+                        partial=None):
+    """``attend`` (``layers.attention``'s contract) on each rank's local
+    shards of the DTensors q (B,S,Nq,hd) and k, v (B,T,Nkv,hd); returns o,
+    a DTensor placed as q.
+
+    Each mesh dim cuts the batch of all three alike; or q's heads, k and v
+    whole on it, where a rank attends its block of q heads with the KV
+    heads of their GQA groups (``_kv_for_heads``); or, with q whole on it,
+    the keys' sequence (a decode cache): each rank attends its own keys
+    with ``partial`` (``attention_lse``'s contract) and the partial
+    outputs are merged by their log-sum-exp, an all-reduce of the maxima
+    and one of the weighted sums, so the cache is never gathered.  Other
+    placements are redistributed to one of these first.  The masks are
+    built on the local shards, at their global positions."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = q.device_mesh
+    B, S, Nq, hd = q.shape
+    # Per mesh dim: (q's placement, k's and v's, their gradients').
+    plan = []
+    for d in range(mesh.ndim):
+        a, b = q.placements[d], k.placements[d]
+        if mesh.size(d) == 1:       # every tensor whole on it
+            plan.append((a, b, b))
+        elif a == Shard(0):
+            plan.append((a, a, a))
+        elif a == Shard(2):
+            # Each rank uses its own KV heads: their gradients add up.
+            plan.append((a, Replicate(), Partial()))
+        elif b == Shard(1) and v.placements[d] == b:
+            plan.append((Replicate(), b, b))
+        else:
+            plan.append((Replicate(),) * 3)
+    qp, kp, kgrad = (list(t) for t in zip(*plan))
+    seq = [d for d, (a, b, _) in enumerate(plan)
+           if mesh.size(d) > 1 and b == Shard(1)]
+    if seq and (causal or partial is None):
+        raise NotImplementedError(
+            "keys cut on their sequence dim are attended only by a decode "
+            "call (causal=False) with a partial attention to merge; the "
+            "kernels return no log-sum-exp")
+    q, k, v = (q.redistribute(mesh, qp), k.redistribute(mesh, kp),
+               v.redistribute(mesh, kp))
+    h0, t0 = shard_offsets(q)[2], shard_offsets(k)[1]
+    ql = q.to_local(grad_placements=qp)
+    kl, vl = (t.to_local(grad_placements=kgrad) for t in (k, v))
+    n = ql.shape[2]
+    if n == 0:      # a ragged head shard left this rank none
+        return from_local(ql + 0.0 * (kl.sum() + vl.sum()), mesh, qp,
+                          q.shape)
+    if n < Nq:
+        kl, vl = _kv_for_heads(kl, vl, h0, n, Nq // k.shape[2])
+    if not seq:
+        o = attend(ql, kl, vl, causal=causal, window=window, cap=cap,
+                   q_offset=q_offset, kv_len=kv_len)
+        return from_local(o, mesh, qp, q.shape)
+    o, lse = partial(ql, kl, vl, cap=cap,
+                     kv_len=None if kv_len is None else kv_len - t0)
+
+    def merged(t, op, shape):
+        pl = [Partial(op) if d in seq else qp[d] for d in range(mesh.ndim)]
+        out = [Replicate() if d in seq else qp[d] for d in range(mesh.ndim)]
+        return from_local(t, mesh, pl, shape).redistribute(
+            mesh, out).to_local()
+
+    w = torch.exp(lse - merged(lse, "max", (B, S, Nq)))
+    num = merged(torch.cat([o.float() * w[..., None], w[..., None]], -1),
+                 "sum", (B, S, Nq, hd + 1))
+    return from_local((num[..., :hd] / num[..., hd:]).to(o.dtype), mesh, qp,
+                      q.shape)
+
+
+def _kv_for_heads(k, v, h0: int, n: int, group: int):
+    """The KV heads (dim 2) that q heads h0 .. h0+n-1 attend, laid out so
+    that a call on these n q heads, which maps q head i to KV head
+    i // (n / n_kv), picks each head's own: the contiguous block of KV
+    heads when that mapping holds, else one KV head per q head."""
+    want = [(h0 + i) // group for i in range(n)]
+    lo, m = want[0], want[-1] - want[0] + 1
+    if n % m == 0 and all(w - lo == i // (n // m)
+                          for i, w in enumerate(want)):
+        return k[:, :, lo:lo + m], v[:, :, lo:lo + m]
+    idx = torch.tensor(want, device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
 
 
 def _chunked_attention(qg, k, v, *, causal, window, cap, q_offset, kv_len):
@@ -343,10 +450,43 @@ def _chunked_attention(qg, k, v, *, causal, window, cap, q_offset, kv_len):
 # ---------------------------------------------------------------------------
 # Projections
 # ---------------------------------------------------------------------------
-def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x: (..., d_in) @ w: (d_in, d_out)."""
-    return torch.matmul(x, w)
+def dense(x: torch.Tensor, w: torch.Tensor,
+          use_axes: Optional[Tuple] = None) -> torch.Tensor:
+    """x: (..., d_in) @ w: (d_in, d_out).
+
+    ``use_axes`` is the weight's placement at use time (the JAX
+    package's): a ZeRO-3 weight stored with its contraction dim cut over
+    "data" is gathered to it, so the activations keep their batch
+    sharding instead of being replicated and partial-summed over d."""
+    if use_axes is not None:
+        w = constrain(w, use_axes)
+    return rows_product(torch.matmul, x, w)
+
+
+def rows_product(product, x, w):
+    """``product(x, w)`` of x (..., d), which flattens x's leading dims
+    into rows.  Torch 2.11's DTensor refuses that flattening where a dim
+    after the first is cut (the sequence, under the "sp" profile), so a
+    DTensor x is made whole there first (the all-gather that sequence
+    parallelism puts before a projection), and the product's gradient on
+    the way back is redistributed to the product's own placements by a
+    redistribution that moves nothing forward."""
+    if not is_dtensor(x):
+        return product(x, w)
+    from torch.distributed.tensor import Replicate
+    cut = [p.is_shard() and 0 < p.dim < x.ndim - 1 for p in x.placements]
+    if any(cut):
+        x = x.redistribute(x.device_mesh, [
+            Replicate() if c else p for c, p in zip(cut, x.placements)])
+    out = product(x, w)
+    return out.redistribute(out.device_mesh, out.placements)
+
+
+UP_W = (None, "model")     # use-time spec for (d_model, wide) weights
+DOWN_W = ("model", None)   # use-time spec for (wide, d_model) weights
 
 
 def swiglu(x, w_gate, w_up, w_down):
-    return dense(F.silu(dense(x, w_gate)) * dense(x, w_up), w_down)
+    h = F.silu(dense(x, w_gate, UP_W)) * dense(x, w_up, UP_W)
+    h = constrain(h, ("batch", None, "model"))
+    return dense(h, w_down, DOWN_W)

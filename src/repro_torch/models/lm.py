@@ -18,6 +18,13 @@ so a training forward takes the plain path (``plain=True``), as the JAX
 package differentiates its plain attention and scans.  ``prefill`` and
 ``decode_step`` run under ``torch.inference_mode()``: serving builds no
 graph, and its in-place cache writes stay legal.
+
+``LM(..., rules=)`` holds DTensor parameters placed by the rules (the
+port's counterpart of the JAX package's parameters under its
+``NamedSharding``s); the same entry points then run as the JAX package's
+steps do under ``use_rules``: the batch, positions and labels join the
+mesh (``sharding.place``), the activations are constrained where the JAX
+package's are, and the prefill's cache is placed by the cache specs.
 """
 from __future__ import annotations
 
@@ -29,31 +36,43 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import resolve
+from ..launch.sharding import (Rules, constrain, current_rules, frozen,
+                               from_local, is_dtensor, place, shard_offsets)
 from .blocks import ATTN_KINDS, Ctx, layer_apply, layer_specs, mixer
 from .config import ModelConfig
 from .layers import PSpec, dense, init_tensor, mrope_cos_sin, \
-    mrope_positions, rms_norm, rope_cos_sin, softcap, stack_specs, \
-    text_positions
+    mrope_positions, rms_norm, rope_cos_sin, rows_product, softcap, \
+    stack_specs, struct, text_positions
 
 
 class ParamTree(nn.Module):
     """Parameters nested as a spec dict is: a ``PSpec`` becomes a parameter,
-    a dict a subtree.  ``tree[name]`` reads either, ``name in tree`` asks."""
+    a dict a subtree.  ``tree[name]`` reads either, ``name in tree`` asks.
+    With ``rules``, each parameter is a DTensor placed by them."""
 
-    def __init__(self, specs: Dict[str, Any], dtype, device) -> None:
+    def __init__(self, specs: Dict[str, Any], dtype, device,
+                 rules: Optional[Rules] = None) -> None:
         super().__init__()
         for name, s in specs.items():
             if isinstance(s, PSpec):
-                self.register_parameter(name, nn.Parameter(
-                    torch.empty(s.shape, dtype=dtype, device=device)))
+                self.register_parameter(name, _parameter(s, dtype, device,
+                                                         rules))
             else:
-                self.add_module(name, ParamTree(s, dtype, device))
+                self.add_module(name, ParamTree(s, dtype, device, rules))
 
     def __getitem__(self, name: str):
         return getattr(self, name)
 
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules
+
+
+def _parameter(spec: PSpec, dtype, device, rules: Optional[Rules]):
+    if rules is None:
+        return nn.Parameter(torch.empty(spec.shape, dtype=dtype,
+                                        device=device))
+    return nn.Parameter(struct(spec.shape, dtype, rules, spec.axes,
+                               device=device))
 
 
 def _leaves(tree: ParamTree, specs: Dict[str, Any]):
@@ -82,19 +101,20 @@ def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
 
 class LM(nn.Module):
     """Parameters of one model; tensors are allocated, not initialized (see
-    ``init_model`` and ``convert.params_from_numpy``)."""
+    ``init_model`` and ``convert.params_from_numpy``).  With ``rules``,
+    DTensors over ``rules.mesh``, each placed as its spec's axes say."""
 
     def __init__(self, cfg: ModelConfig, *, dtype=torch.float32,
-                 device="cuda") -> None:
+                 device="cuda", rules: Optional[Rules] = None) -> None:
         super().__init__()
         dev = resolve(device)
         self.cfg = cfg
         self.specs = model_specs(cfg)
         for name, s in self.specs.items():
             if name != "layers":
-                self.register_parameter(name, nn.Parameter(
-                    torch.empty(s.shape, dtype=dtype, device=dev)))
-        self.layers = nn.ModuleList(ParamTree(layer, dtype, dev)
+                self.register_parameter(name, _parameter(s, dtype, dev,
+                                                         rules))
+        self.layers = nn.ModuleList(ParamTree(layer, dtype, dev, rules)
                                     for layer in self.specs["layers"])
         # The plain PyTorch versions (attention, the chunked selective scan,
         # the chunkwise mLSTM cell) instead of the kernels: the reference
@@ -117,16 +137,22 @@ class LM(nn.Module):
         ``tokens``.  The embeddings are cast to the table's dtype before
         the projection, as in the JAX package."""
         mode = self.cfg.input_mode
+        emb = self.embed
+        batch = {k: place(t, ("batch",) + (None,) * (t.ndim - 1), emb)
+                 for k, t in batch.items()}
         if mode == "tokens":
-            x = self.embed[batch["tokens"]]
+            x = _lookup(emb, batch["tokens"])
         elif mode == "embeds":
-            x = dense(batch["frame_embeds"].to(self.embed.dtype),
+            x = dense(batch["frame_embeds"].to(emb.dtype),
                       self.frontend_proj)
         else:
-            patches = dense(batch["patch_embeds"].to(self.embed.dtype),
-                            self.frontend_proj)
-            x = torch.cat([patches, self.embed[batch["tokens"]]], dim=1)
-        return x * torch.tensor(self.cfg.embed_scale, dtype=x.dtype)
+            x = _lookup(emb, batch["tokens"])
+            if batch["patch_embeds"].shape[1]:      # none in decode
+                patches = dense(batch["patch_embeds"].to(emb.dtype),
+                                self.frontend_proj)
+                x = torch.cat([patches, x], dim=1)
+        x = x * torch.tensor(self.cfg.embed_scale, dtype=x.dtype)
+        return constrain(x, ("batch", None, None))
 
     def positions(self, batch: Dict[str, torch.Tensor], B: int,
                   S: int) -> torch.Tensor:
@@ -136,8 +162,11 @@ class LM(nn.Module):
         device = self.embed.device
         if self.cfg.mrope:
             n_text = batch["tokens"].shape[1] if "tokens" in batch else 0
-            return mrope_positions(B, S - n_text, n_text, device=device)
-        return text_positions(B, S, device=device)
+            return place(mrope_positions(B, S - n_text, n_text,
+                                         device=device),
+                         (None, "batch", None), self.embed)
+        return place(text_positions(B, S, device=device), ("batch", None),
+                     self.embed)
 
     def rope(self, positions) -> Dict[float, Any]:
         """``rope_tables`` of this model."""
@@ -163,11 +192,15 @@ class LM(nn.Module):
         cfg = self.cfg
         x = rms_norm(x, self.final_ln, cfg.norm_eps)
         if cfg.tie_embeddings:
-            logits = torch.matmul(x, self.embed.t())
+            # Not ``x @ embed.t()``: a view of a DTensor parameter fails
+            # under inference_mode.
+            logits = rows_product(torch.nn.functional.linear, x,
+                                  frozen(self.embed))
         else:
             logits = dense(x, self.unembed)
         logits = logits / torch.tensor(cfg.logit_divisor, dtype=logits.dtype)
-        return softcap(logits, cfg.final_softcap)
+        return constrain(softcap(logits, cfg.final_softcap),
+                         ("batch", None, "model"))
 
     # -- entry points ---------------------------------------------------------
     def forward(self, batch: Dict[str, torch.Tensor], *, remat: str = "none",
@@ -185,10 +218,9 @@ class LM(nn.Module):
         logits = self._head(x)
         # Shift: predict token t+1 at position t; ignore label < 0.
         lg = logits[:, :-1].float()
-        lb = batch["labels"][:, 1:].long()
+        lb = place(batch["labels"], ("batch", None), logits)[:, 1:].long()
         mask = (lb >= 0).float()
-        logz = torch.logsumexp(lg, dim=-1)
-        gold = lg.gather(-1, lb.clamp_min(0)[..., None])[..., 0]
+        logz, gold = _nll_terms(lg, lb)
         nll = (logz - gold) * mask
         loss = nll.sum() / mask.sum().clamp_min(1.0)
         if isinstance(aux, torch.Tensor) or aux:
@@ -203,7 +235,8 @@ class LM(nn.Module):
         x = self.embed_inputs(batch)
         B, S, _ = x.shape
         cache = init_cache(self.cfg, B, max_len, dtype=x.dtype,
-                           device=x.device)
+                           device=x.device,
+                           rules=_rules_of(x))
         positions = self.positions(batch, B, S)
         x, _ = self.run_layers(x, mode="prefill", positions=positions,
                                cache=cache, max_len=max_len)
@@ -216,11 +249,88 @@ class LM(nn.Module):
         x = self.embed_inputs(batch)
         B, S, _ = x.shape
         shape = (3, B, S) if self.cfg.mrope else (B, S)
-        positions = torch.full(shape, int(pos), dtype=torch.int32,
-                               device=x.device)
+        positions = place(torch.full(shape, int(pos), dtype=torch.int32,
+                                     device=x.device),
+                          ((None,) if self.cfg.mrope else ()) +
+                          ("batch", None), x)
         x, _ = self.run_layers(x, mode="decode", positions=positions,
                                cache=cache, pos_offset=int(pos))
         return self._head(x), cache
+
+
+def _lookup(emb, tokens):
+    """``emb[tokens]``.  On DTensors, on each rank's shards: the table at
+    its use-time placement ("model", None), so only its vocabulary stays
+    cut; a rank looks up the tokens of its own rows and zeros the others,
+    and the partial sums over the vocab shards are reduced by the
+    ``constrain`` that follows (the vocab-parallel embedding)."""
+    if not is_dtensor(emb):
+        return emb[tokens]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    emb = constrain(emb, ("model", None))
+    mesh = emb.device_mesh
+    # Per mesh dim: (the tokens' placement, the output's, the table's
+    # gradient's).
+    plan = []
+    for e, t in zip(emb.placements, tokens.placements):
+        if e == Shard(0):                     # a block of the vocabulary
+            plan.append((Replicate(), Partial(), e))
+        elif e == Shard(1):                   # a block of d_model
+            plan.append((Replicate(), Shard(2), e))
+        else:                                 # whole: the tokens' cut
+            plan.append((t, t, Partial() if isinstance(t, Shard) else e))
+    tok_pl, out_pl, grad_pl = (list(x) for x in zip(*plan))
+    tokens = tokens.redistribute(mesh, tok_pl)
+    v0 = shard_offsets(emb)[0]
+    local = emb.to_local(grad_placements=grad_pl)
+    ids = tokens.to_local().long() - v0
+    mine = (ids >= 0) & (ids < local.shape[0])
+    x = local[ids.clamp(0, max(local.shape[0] - 1, 0))] * mine[..., None]
+    return from_local(x, mesh, out_pl, tuple(tokens.shape) + (emb.shape[1],))
+
+
+def _nll_terms(lg, lb):
+    """(logsumexp, gold logit) of the logits ``lg`` over their last dim at
+    the labels ``lb`` (>= 0).  DTensor logits whose vocabulary is cut over
+    several ranks take the max, exp and sum of ``torch.logsumexp`` spelled
+    out and the gold logit picked by an iota compare and a sum (the JAX
+    package's form), so that only (B, S) partials are reduced across the
+    vocab shards, never the logits gathered.  Other DTensor logits take,
+    on each rank's shard, what a plain tensor takes: ``torch.logsumexp``
+    and ``gather`` (one rank's step is then the plain step's, bit for
+    bit)."""
+    if not is_dtensor(lg):
+        return (torch.logsumexp(lg, dim=-1),
+                lg.gather(-1, lb.clamp_min(0)[..., None])[..., 0])
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = lg.device_mesh
+    if any(p == Shard(2) and mesh.size(d) > 1
+           for d, p in enumerate(lg.placements)):
+        m = lg.detach().amax(dim=-1, keepdim=True)
+        logz = (lg - m).exp().sum(dim=-1).log() + m[..., 0]
+        iota = place(torch.arange(lg.shape[-1], device=lg.device), (None,),
+                     lg)
+        gold = torch.where(iota == lb[..., None], lg, 0.0).sum(dim=-1)
+        return logz, gold
+    rows = [p if isinstance(p, Shard) and p.dim < 2 else Replicate()
+            for p in lg.placements]
+    lg = lg.redistribute(mesh, rows)
+    logz, gold = _nll_terms(lg.to_local(grad_placements=rows),
+                            lb.redistribute(mesh, rows).to_local())
+    return (from_local(logz, mesh, rows, lb.shape),
+            from_local(gold, mesh, rows, lb.shape))
+
+
+def _rules_of(x) -> Optional[Rules]:
+    """The active rules, which a model of DTensors runs under (its cache is
+    placed by them); None for a plain tensor."""
+    if not is_dtensor(x):
+        return None
+    rules = current_rules()
+    if rules is None:
+        raise RuntimeError("a model of DTensors runs under its rules "
+                           "(launch.sharding.use_rules, as the steps do)")
+    return rules
 
 
 def run_layers(cfg: ModelConfig, layers, x, *, mode: str, positions,
@@ -282,17 +392,33 @@ def _remat_wrap(fn, remat: str):
 # Construction
 # ---------------------------------------------------------------------------
 def init_model(cfg: ModelConfig, seed: int = 0, *, dtype=torch.float32,
-               device="cuda") -> LM:
+               device="cuda", rules: Optional[Rules] = None) -> LM:
     """A model with the JAX package's per-leaf init distributions, drawn
-    from a ``torch.Generator`` on ``device`` seeded with ``seed``."""
+    from a ``torch.Generator`` on ``device`` seeded with ``seed``.  With
+    ``rules``, DTensor parameters holding the same numbers: each leaf is
+    drawn whole, then cut to this rank's shard (``local_part``)."""
     dev = resolve(device)
-    model = LM(cfg, dtype=dtype, device=dev)
+    model = LM(cfg, dtype=dtype, device=dev, rules=rules)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     with torch.no_grad():
         for param, spec in model.named_specs():
-            init_tensor(spec, gen, dtype=dtype, device=dev, out=param)
+            if rules is None:
+                init_tensor(spec, gen, dtype=dtype, device=dev, out=param)
+            else:
+                whole = init_tensor(spec, gen, dtype=dtype, device=dev)
+                param.to_local().copy_(local_part(whole, param))
     return model
+
+
+def local_part(whole: torch.Tensor, like) -> torch.Tensor:
+    """The part of ``whole``, a tensor of the DTensor ``like``'s global
+    shape, that this rank holds of ``like``."""
+    local = like.to_local()
+    out = whole
+    for d, (o, n) in enumerate(zip(shard_offsets(like), local.shape)):
+        out = out.narrow(d, o, n)
+    return out
 
 
 def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> Dict[str, Any]:
@@ -376,20 +502,35 @@ def layer_cache(cfg: ModelConfig, cache, li: int) -> Dict[str, Any]:
     period = len(cfg.pattern)
     i, p = divmod(li, period)
     if i < cfg.n_periods:
-        return {n: t[i] for n, t in cache["layers"][f"p{p}"].items()}
+        return {n: _row(t, i) for n, t in cache["layers"][f"p{p}"].items()}
     return cache[f"rem{li - cfg.n_periods * period}"]
 
 
+def _row(t, i: int):
+    """``t[i]``, a view.  For a DTensor (whose stacked dim 0 is never cut),
+    the view is taken on the local shard and wrapped: DTensor's own view
+    of a cache made outside ``inference_mode`` fails inside it."""
+    if not is_dtensor(t):
+        return t[i]
+    from torch.distributed.tensor import Shard
+    placements = [Shard(q.dim - 1) if isinstance(q, Shard) else q
+                  for q in t.placements]
+    return from_local(t.to_local()[i], t.device_mesh, placements,
+                      t.shape[1:])
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               dtype=torch.bfloat16, device="cuda"):
+               dtype=torch.bfloat16, device="cuda",
+               rules: Optional[Rules] = None):
     """Zeroed cache tensors; a leaf whose spec pins a dtype (the recurrent
-    states, fp32) keeps it, the others take ``dtype``."""
+    states, fp32) keeps it, the others take ``dtype``.  With ``rules``,
+    DTensors placed by the cache specs' axes."""
     dev = resolve(device)
 
     def build(tree):
         if isinstance(tree, PSpec):
-            return torch.zeros(tree.shape, dtype=tree.dtype or dtype,
-                               device=dev)
+            return struct(tree.shape, tree.dtype or dtype, rules, tree.axes,
+                          device=dev)
         return {k: build(v) for k, v in tree.items()}
 
     return build(cache_specs(cfg, batch, max_len))

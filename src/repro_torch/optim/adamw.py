@@ -9,7 +9,9 @@ every leaf (norms included), and the moments are stored in ``state_dtype``.
 
 A tree here is a mapping from leaf names to tensors (``dict(model.
 named_parameters())``); gradients and moments are mappings with the same
-names.  The update writes the parameters and moments in place.
+names.  The update writes the parameters and moments in place.  The leaves
+may be DTensors: the moments are placed as their parameters, each leaf's
+sum of squares is reduced over its shards, and the update is local.
 """
 from __future__ import annotations
 
@@ -37,9 +39,11 @@ def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
 
 
 def adamw_init(params: Mapping[str, torch.Tensor], cfg: AdamWConfig):
-    """Zero moments in ``cfg.state_dtype`` beside each parameter."""
+    """Zero moments in ``cfg.state_dtype`` beside each parameter (placed
+    as it, for a DTensor)."""
     def zeros(p):
-        return torch.zeros(p.shape, dtype=cfg.state_dtype, device=p.device)
+        return torch.zeros_like(p, dtype=cfg.state_dtype,
+                                memory_format=torch.contiguous_format)
 
     return {"m": {n: zeros(p) for n, p in params.items()},
             "v": {n: zeros(p) for n, p in params.items()},

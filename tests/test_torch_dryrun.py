@@ -561,3 +561,191 @@ print("ok")
             [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")])})
     assert res.returncode == 0 and res.stdout.strip() == "ok", \
         res.stdout[-2000:] + res.stderr[-3000:]
+
+
+# ---------------------------------------------------------------------------
+# Collectives counted from the step on DTensors
+# ---------------------------------------------------------------------------
+# smoke(llama3.2-1b) cells on the (2, 2) layout: kind -> (batch, seq); a
+# decode step runs against a cache of ``seq``.
+SMOKE_CELLS = {"train": (4, 8), "prefill": (4, 8), "decode": (4, 16)}
+LAYOUT_2X2 = ((2, 2), ("data", "model"))
+# The port's count (``dryrun.dtensor_collectives``, TrainSettings() so
+# remat "dots", bf16): kind -> (count, result bytes, wire bytes a device).
+# Beside each cell, the reference's ``parse_collectives`` of the same cell
+# (jax.jit of its make_*_step lowered with its input_specs on 4 XLA CPU
+# devices, make_host_mesh(model=2), outer program only; printed by
+# ``python tests/test_torch_dryrun.py --reference-collectives``), as
+# kind: (count, result bytes).  XLA's partitioner and DTensor's choose
+# their collectives each their own way, so only the port's are held.
+# (With the 512 host devices that importing the reference's dryrun
+# module asks for, make_host_mesh(model=2) is (256, 2) instead, and
+# "fsdp" shows no collective at all: every batch and weight dim is
+# below 256 and stays whole.)
+PINNED_DTENSOR = {
+    # ref: all-reduce (15, 177136), all-gather (23, 290944),
+    # all-to-all (2, 8192), collective-permute (1, 64)
+    ("default", "train"): {"all-reduce": (27, 19788, 19788.0),
+                           "all-gather": (70, 426240, 213120.0),
+                           "reduce-scatter": (52, 155824, 155824.0)},
+    # ref: all-reduce (3, 12288), all-gather (11, 143488),
+    # all-to-all (1, 4096), collective-permute (1, 64)
+    ("default", "prefill"): {"all-reduce": (3, 6144, 6144.0),
+                             "all-gather": (28, 217152, 108576.0),
+                             "reduce-scatter": (6, 12288, 12288.0)},
+    # ref: all-reduce (6, 2112), all-gather (12, 140304),
+    # all-to-all (1, 512), collective-permute (1, 8)
+    ("default", "decode"): {"all-reduce": (7, 1920, 1920.0),
+                            "all-gather": (30, 206856, 103428.0),
+                            "reduce-scatter": (6, 1536, 1536.0)},
+    # ref: all-reduce (4, 279336), all-gather (16, 426112),
+    # all-to-all (2, 4096)
+    ("fsdp", "train"): {"all-reduce": (16, 1304, 1304.0),
+                        "all-gather": (70, 614496, 307248.0),
+                        "reduce-scatter": (34, 233472, 233472.0)},
+    # ref: all-gather (9, 278656), all-to-all (1, 2048)
+    ("fsdp", "prefill"): {"all-gather": (32, 320256, 160128.0),
+                          "reduce-scatter": (2, 3072, 3072.0)},
+    # ref: all-gather (9, 278544), all-to-all (1, 256)
+    ("fsdp", "decode"): {"all-gather": (32, 320256, 160128.0),
+                         "reduce-scatter": (2, 3072, 3072.0)},
+    # ref: all-reduce (16, 186096), all-gather (35, 356480),
+    # all-to-all (2, 8192), collective-permute (1, 64)
+    ("sp", "train"): {"all-reduce": (23, 11596, 11596.0),
+                      "all-gather": (68, 370784, 185392.0),
+                      "reduce-scatter": (45, 117904, 117904.0)},
+    # ref: all-reduce (5, 12808), all-gather (15, 168064),
+    # all-to-all (1, 4096), collective-permute (2, 576)
+    ("sp", "prefill"): {"all-reduce": (1, 2048, 2048.0),
+                        "all-gather": (30, 192544, 96272.0),
+                        "reduce-scatter": (6, 9216, 9216.0)},
+    # ref: all-reduce (6, 2112), all-gather (12, 140304),
+    # all-to-all (1, 512), collective-permute (1, 8)
+    ("sp", "decode"): {"all-reduce": (7, 1920, 1920.0),
+                       "all-gather": (30, 206856, 103428.0),
+                       "reduce-scatter": (6, 1536, 1536.0)},
+}
+
+
+def smoke_cell(kind):
+    B, S = SMOKE_CELLS[kind]
+    return ShapeConfig(f"smoke_{kind}", S, B, kind)
+
+
+@pytest.mark.parametrize("profile,kind", list(PINNED_DTENSOR))
+def test_dtensor_collectives_of_smoke_llama_are_pinned(profile, kind):
+    """Each kind's count, result bytes and wire bytes a device, as the
+    DTensor step issues them on rank 0 of the (2, 2) layout; the pass
+    leaves no process group."""
+    cfg = smoke(get_config("llama3.2-1b"))
+    got = dryrun.dtensor_collectives(cfg, smoke_cell(kind),
+                                     steps.TrainSettings(), LAYOUT_2X2,
+                                     profile)
+    assert not dist.is_initialized()
+    assert set(got) == set(dryrun.COLLECTIVES)
+    held = {k: (v["count"], int(v["result_bytes"]), v["bytes"])
+            for k, v in got.items() if v["count"]}
+    assert held == PINNED_DTENSOR[profile, kind]
+    assert all(v["bytes"] == 0 for v in got.values() if not v["count"])
+
+
+@pytest.mark.parametrize("kind", list(SMOKE_CELLS))
+def test_tensor_parallel_activation_all_reduces_are_counted(kind):
+    """Under "default" each step all-reduces activations (B/2 x S x
+    d_model in bf16 on this layout; one token a row in decode), which the
+    analytic count has no term for; under "fsdp" no all-reduce is of an
+    activation: only the replicated norm weights' gradients (d_model in
+    bf16) and fp32 scalars (the loss's sums, the gradient norm)."""
+    cfg = smoke(get_config("llama3.2-1b"))
+    B, S = SMOKE_CELLS[kind]
+    rows = 1 if kind == "decode" else S
+    activation = B // 2 * rows * cfg.d_model * 2
+    calls = {p: dryrun.collective_calls(cfg, smoke_cell(kind),
+                                        steps.TrainSettings(), LAYOUT_2X2,
+                                        p)
+             for p in ("default", "fsdp")}
+    reduced = {p: [res for op, res, g in c if op == "all-reduce" and g > 1]
+               for p, c in calls.items()}
+    assert activation in reduced["default"]
+    assert set(reduced["fsdp"]) <= {4, 2 * cfg.d_model}
+    if kind != "train":
+        assert not reduced["fsdp"]
+    # The analytic count's all-reduces are the norm weights' gradients
+    # alone, in train only.
+    mesh = tmesh.layout_mesh(*LAYOUT_2X2)
+    rules = sh.make_rules(mesh)
+    analytic = dryrun.analytic_collectives(
+        steps.model_structs(cfg, rules), kind, rules, steps.TrainSettings())
+    assert analytic["all-reduce"]["result_bytes"] == \
+        analytic["all-reduce"]["count"] * 2 * cfg.d_model
+    assert (analytic["all-reduce"]["count"] > 0) == (kind == "train")
+
+
+def test_records_say_which_count_they_carry():
+    """llama3.2-1b (attention and dense FFNs) carries the count of its
+    DTensor step on the (16, 16) layout; xlstm-125m (mLSTM and sLSTM
+    layers, which the DTensor forward does not run) the analytic one,
+    unchanged.  The cost pass is given, so only the counts run; no
+    process group is left."""
+    settings = steps.TrainSettings()
+    costs = {(a, "decode_32k"): {"flops": 1, "flops_by_op": {}, "bytes": 1,
+                                 "temp_bytes": 1, "seconds": 0.0}
+             for a in ("llama3.2-1b", "xlstm-125m")}
+    recs = {a: dryrun.run_cell(a, DECODE_32K, False, settings, costs=costs)
+            for a in ("llama3.2-1b", "xlstm-125m")}
+    assert not dist.is_initialized()
+    assert dryrun.counts_on_dtensors(get_config("llama3.2-1b"))
+    assert not dryrun.counts_on_dtensors(get_config("xlstm-125m"))
+    for arch, by in (("llama3.2-1b", "dtensor"), ("xlstm-125m",
+                                                   "analytic")):
+        coll = recs[arch]["collectives"]
+        assert {v["counted_by"] for v in coll.values()} == {by}, arch
+        assert recs[arch]["collective_bytes_per_device"] == sum(
+            v["bytes"] for v in coll.values())
+    mesh = tmesh.make_layout_mesh()
+    rules = sh.make_rules(mesh)
+    want = dryrun.analytic_collectives(
+        steps.model_structs(get_config("xlstm-125m"), rules), "decode",
+        rules, settings)
+    got = {k: {f: x for f, x in v.items() if f != "counted_by"}
+           for k, v in recs["xlstm-125m"]["collectives"].items()}
+    assert got == want
+    llama = recs["llama3.2-1b"]["collectives"]
+    assert llama["all-reduce"]["count"] > 0
+
+
+def reference_collectives():
+    """The reference's ``parse_collectives`` of the SMOKE_CELLS, each
+    profile: run in a process with four host devices (``XLA_FLAGS``)."""
+    from repro.configs import get_config as jget_config
+    from repro.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(model=2)
+    cfg = jmc.smoke(jget_config("llama3.2-1b"))
+    st = jsteps.TrainSettings()
+    for profile in PROFILES:
+        rules = jsh.make_rules(mesh, profile)
+        for kind, (B, S) in SMOKE_CELLS.items():
+            shape = jmc.ShapeConfig(f"smoke_{kind}", S, B, kind)
+            sp = jsteps.input_specs(cfg, shape, rules, st)
+            if kind == "train":
+                fn = jsteps.make_train_step(cfg, st, rules)
+                args = (sp["params"], sp["opt_state"], sp["batch"],
+                        sp["step"])
+            elif kind == "prefill":
+                fn = jsteps.make_prefill_step(cfg, S, rules)
+                args = (sp["params"], sp["batch"])
+            else:
+                fn = jsteps.make_decode_step(cfg, rules)
+                args = (sp["params"], sp["batch"], sp["cache"], sp["pos"])
+            with mesh:
+                hlo = jax.jit(fn).lower(*args).compile().as_text()
+            coll = jdryrun.parse_collectives(hlo)
+            print(profile, kind, {k: (v["count"], v["result_bytes"])
+                                  for k, v in coll.items() if v["count"]})
+
+
+if __name__ == "__main__":
+    # XLA_FLAGS=--xla_force_host_platform_device_count=4 JAX_PLATFORMS=cpu
+    # PYTHONPATH=src python tests/test_torch_dryrun.py --reference-collectives
+    assert sys.argv[1:] == ["--reference-collectives"]
+    reference_collectives()
