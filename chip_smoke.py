@@ -77,6 +77,17 @@ Phases, each of which must pass (any failure exits non-zero):
      local shards (path "llama3.2-1b sharded").  Bit for bit is
      expected; a difference is printed and held to fp32 2e-5 / bf16
      3e-2.  The group is destroyed after;
+11d. qwen3-moe-235b-a22b at full width on DTensor parameters over the same
+     (1, 1) NCCL mesh, each profile (``moe_sharded_step_phase``): the fp32
+     train step of 11c cut to 1 of its 94 layers (3.73 G parameters; the
+     plain run's updated leaves wait on the host, and it is freed before
+     the DTensor runs), and an fp32 prefill of 4 x 256 and 4 decode steps
+     at phase 21's 4 layers through the kernel path (path
+     "qwen3-moe-235b-a22b sharded"), each held to the plain tensors' as in
+     11c.  One rank holds every expert (ep = 1): the single-shard MoE on
+     DTensors; the expert-parallel all-to-alls and their backward run on
+     CPU ranks only (tests/test_torch_moe_ep.py,
+     tests/test_torch_sharded_moe_step.py);
  12. one ``flash_attention`` and one ``flash_decode`` call under
      torch.profiler, each exactly one device kernel, and each scan call
      (one kernel; two for the ``mlstm_scan`` prefill: scores, then the
@@ -157,7 +168,8 @@ Phases, each of which must pass (any failure exits non-zero):
      tensor (``oracle_failures``: bf16 3e-2, fp32 2e-5, and each
      block of 1,024 query rows within 1e-2 (bf16) or 2e-5 (fp32) of the
      oracle relative to its own norm, ``block_rel_err``); each case's
-     kernel, oracle and SDPA (bf16) times with a cold L2 beside its bound;
+     kernel, oracle and SDPA times with a cold L2 beside its bound (SDPA
+     on the expanded kv heads; in fp32 its memory-efficient backend);
      25b, phase 11's training step and phase 5's prefill (4 x 256) and
      decode (batch 4 against 512 positions) counted by FlopCounterMode on
      the card (plain path), each equal to the dry run's meta pass
@@ -183,7 +195,7 @@ Phases, each of which must pass (any failure exits non-zero):
      JAX package's (``ROT_PINNED``); it launches no kernel;
 then one ``{"kernels": [...]}`` line, whose launches are those of every
 served path's counted wave (phases 5, 8, 10, 14, 18, 20, 23), of the
-training runs (phases 11 and 11b), of phase 11c's DTensor runs, of the
+training runs (phases 11 and 11b), of phases 11c-11d's DTensor runs, of the
 engine runs (phase 24) and of phase 25a's counted calls.  The expert-parallel MoE
 (``moe._moe_expert_parallel``) does not run here: NCCL puts one rank on
 a card, and the script needs one card; tests/test_torch_moe_ep.py holds
@@ -358,6 +370,11 @@ COMPRESS_STEP = 1
 # Phase 11c: the DTensor train step's batch x tokens (fp32), and the bf16
 # decode steps after the 4 x 256 prefill.
 SHARDED_TRAIN, SHARDED_DECODE_STEPS = (2, 512), 4
+# Phase 11d: qwen3-moe-235b-a22b's DTensor train step cut to 1 of its 94
+# layers: 3.73 G parameters (experts 2.416 G, embedding and head 1.245 G,
+# attention and router 0.072 G), so parameters, gradients and both moments
+# in fp32 take 59.7 GB; its prefill and decode at QWEN3MOE_FP32_LAYERS.
+MOE_SHARDED_TRAIN_LAYERS = 1
 COMPRESS_ERR_SLACK = 2.0 ** -16
 # Phase 25: flash_attention at the prefill_32k cell's 32,768 query tokens
 # (src/repro/models/config.py:192), held against the port's
@@ -1762,14 +1779,22 @@ def host_mesh_phase(torch, dev):
     return out
 
 
-def sharded_step_phase(torch, dev, cfg=None):
+def sharded_step_phase(torch, dev, cfg=None, *, serve_cfg=None,
+                       serve_dtype="bfloat16"):
     """Phase 11c: ``cfg`` (default llama3.2-1b at full width) on DTensor
     parameters over the (1, 1) mesh of ``make_host_mesh()`` (NCCL on the
     card, gloo on the CPU; a ``file://`` rendezvous), under each profile of
     ``PROFILES``, against the same weights as plain tensors (see the module
-    docstring).  Returns the numbers it prints and the kernel launches of
-    the DTensor runs (counters set to 0 before the first, read after the
-    last; the plain runs they are held to are not counted)."""
+    docstring): the fp32 train step on ``cfg``, the prefill and decode
+    steps on ``serve_cfg`` (default ``cfg``) in ``serve_dtype``.  Each
+    plain run is freed before the DTensor runs start.  Where its updated
+    leaves, three times over, would not fit the card beside a DTensor
+    run's (phase 11d: a model and its optimizer fill most of the card),
+    they wait on the host and come back one at a time to be compared.
+    Returns the numbers it prints and
+    the kernel launches of the DTensor runs (counters set to 0 before the
+    first, read after the last; the plain runs they are held to are not
+    counted)."""
     import tempfile
 
     import torch.distributed as dist
@@ -1785,6 +1810,11 @@ def sharded_step_phase(torch, dev, cfg=None):
 
     t_phase = time.perf_counter()
     cfg = cfg or get_config(ARCH)
+    serve_cfg = serve_cfg or cfg
+    tag = f"sharded {cfg.name}"
+    card_bytes = (torch.cuda.get_device_properties(dev).total_memory
+                  if dev.type == "cuda" else math.inf)
+    serve_dt = getattr(torch, serve_dtype)
     B, S = SHARDED_TRAIN
     nb = make_pipeline(DataConfig(batch=B, seq_len=S,
                                   vocab_size=cfg.vocab_size,
@@ -1804,6 +1834,9 @@ def sharded_step_phase(torch, dev, cfg=None):
                   for n, p in model.named_parameters()}
         leaves.update({f"{k}/{n}": t for k in ("m", "v")
                        for n, t in opt[k].items()})
+        if rules is None and 3 * sum(t.numel() * t.element_size()
+                                     for t in leaves.values()) > card_bytes:
+            leaves = {n: t.cpu() for n, t in leaves.items()}
         return loss, leaves
 
     def local(t):
@@ -1812,11 +1845,11 @@ def sharded_step_phase(torch, dev, cfg=None):
     def served(model, rules):
         """Prefill of BATCH x PROMPT and SHARDED_DECODE_STEPS decode steps,
         each fed the plain run's greedy token: the logits, on the host."""
-        prompt = prompt_batch(cfg, BATCH, PROMPT, dev)
-        logits, cache = steps.make_prefill_step(cfg, MAX_LEN, rules)(
+        prompt = prompt_batch(serve_cfg, BATCH, PROMPT, dev)
+        logits, cache = steps.make_prefill_step(serve_cfg, MAX_LEN, rules)(
             model, prompt)
         out = [local(logits).float().cpu()]
-        decode = steps.make_decode_step(cfg, rules)
+        decode = steps.make_decode_step(serve_cfg, rules)
         for i in range(SHARDED_DECODE_STEPS):
             logits, cache = decode(model, {"tokens": tokens[i]}, cache,
                                    PROMPT + i)
@@ -1824,32 +1857,41 @@ def sharded_step_phase(torch, dev, cfg=None):
         return out
 
     def held(what, got, want, tol):
-        """Bit for bit, or the largest difference, held to ``tol``."""
-        err = max(float((g.float() - w.float()).abs().max())
-                  for g, w in zip(got, want))
-        exact = all(torch.equal(g, w) for g, w in zip(got, want))
-        check(err <= tol, f"[sharded] {what}: {err} > {tol}")
+        """Bit for bit, or the largest difference, held to ``tol``; each
+        wanted tensor is brought to its counterpart's device in turn."""
+        err, exact = 0.0, True
+        for g, w in zip(got, want):
+            w = w.to(g.device)
+            err = max(err, float((g.float() - w.float()).abs().max()))
+            exact = exact and torch.equal(g, w)
+            del w
+        check(err <= tol, f"[{tag}] {what}: {err} > {tol}")
         return {"exact": exact, "max_abs_err": err}
 
-    out = {"arch": cfg.name, "train_batch": [B, S], "profiles": {}}
+    out = {"arch": cfg.name, "train_layers": cfg.n_layers,
+           "train_batch": [B, S], "serve_layers": serve_cfg.n_layers,
+           "serve_dtype": serve_dtype, "profiles": {}}
     torch.use_deterministic_algorithms(True)
     try:
         want_loss, want = train(None)
     finally:
         torch.use_deterministic_algorithms(False)
-    # The plain bf16 kernel run, and the greedy tokens both runs are fed.
-    plain = init_model(cfg, 0, dtype=torch.bfloat16, device=dev)
+    want_loss = float(want_loss)
+    release_cuda()
+    # The plain kernel run, and the greedy tokens both runs are fed.
+    plain = init_model(serve_cfg, 0, dtype=serve_dt, device=dev)
     tokens = []
-    prompt = prompt_batch(cfg, BATCH, PROMPT, dev)
+    prompt = prompt_batch(serve_cfg, BATCH, PROMPT, dev)
     with torch.inference_mode():
         logits, cache, _ = plain.prefill(prompt, MAX_LEN)
         want_served = [logits.float().cpu()]
         for i in range(SHARDED_DECODE_STEPS):
-            tokens.append(logits[:, -1:, :cfg.vocab_size].argmax(-1))
+            tokens.append(logits[:, -1:, :serve_cfg.vocab_size].argmax(-1))
             logits, cache = plain.decode_step({"tokens": tokens[i]}, cache,
                                               PROMPT + i)
             want_served.append(logits.float().cpu())
-    del plain, cache
+    del plain, cache, logits
+    release_cuda()
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group(
@@ -1868,21 +1910,24 @@ def sharded_step_phase(torch, dev, cfg=None):
                     torch.use_deterministic_algorithms(False)
                 row = {"train_s": time.perf_counter() - t0}
                 names = sorted(want)
-                check(sorted(got) == names, f"[sharded] {profile}: leaves")
-                row["loss"] = [float(local(loss)), float(want_loss)]
+                check(sorted(got) == names, f"[{tag}] {profile}: leaves")
+                row["loss"] = [float(local(loss)), want_loss]
                 row["train"] = held(
-                    f"{profile} train", [local(loss)] + [
+                    f"{profile} train", [local(loss).cpu()] + [
                         local(got[n]) for n in names],
-                    [want_loss] + [want[n] for n in names], TOL["float32"])
-                del got
+                    [torch.tensor(want_loss)] + [want[n] for n in names],
+                    TOL["float32"])
+                del got, loss
+                release_cuda()
                 t0 = time.perf_counter()
-                model = init_model(cfg, 0, dtype=torch.bfloat16, device=dev,
+                model = init_model(serve_cfg, 0, dtype=serve_dt, device=dev,
                                    rules=rules)
                 row["serve"] = held(f"{profile} prefill + decode",
                                     served(model, rules), want_served,
-                                    TOL["bfloat16"])
+                                    TOL[serve_dtype])
                 row["serve_s"] = time.perf_counter() - t0
                 del model
+                release_cuda()
                 out["profiles"][profile] = row
             if dev.type == "cuda":
                 torch.cuda.synchronize()
@@ -1891,16 +1936,47 @@ def sharded_step_phase(torch, dev, cfg=None):
             dist.destroy_process_group()
     check(not dist.is_initialized(), "the process group outlived the phase")
     if dev.type == "cuda":
-        want_launches = len(PROFILES) * cfg.n_layers
+        want_launches = len(PROFILES) * serve_cfg.n_layers
         check(launches.get("flash_attention") == want_launches
               and launches.get("flash_decode") == want_launches
               * SHARDED_DECODE_STEPS,
-              f"[sharded] launches {launches}: the DTensor runs did not go "
+              f"[{tag}] launches {launches}: the DTensor runs did not go "
               f"through the attention kernels once a layer a pass")
     out["launches"] = launches
     out["phase_s"] = time.perf_counter() - t_phase
-    log(f"[sharded] {json.dumps(out)}")
+    log(f"[{tag}] {json.dumps(out)}")
     return out, launches
+
+
+def release_cuda():
+    """Collect the garbage, and return the card's cached blocks."""
+    import torch
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def moe_sharded_step_phase(torch, dev, cfg=None):
+    """Phase 11d: qwen3-moe-235b-a22b at full width (``cfg`` replaces it,
+    as the CPU test gives a smoke config) on DTensor parameters over the
+    (1, 1) mesh under each profile (``sharded_step_phase``): the fp32 train
+    step cut to MOE_SHARDED_TRAIN_LAYERS layer(s) (the plain run's leaves
+    wait on the host), and an fp32 prefill and decode steps at phase 21's
+    QWEN3MOE_FP32_LAYERS layers through the kernel path.  One rank holds
+    every expert: ep = 1, the single-shard MoE on DTensors."""
+    from repro_torch.configs import get_config
+    cfg = cfg or get_config(QWEN3MOE)
+    train_cfg = dataclasses.replace(cfg, n_layers=min(
+        cfg.n_layers, MOE_SHARDED_TRAIN_LAYERS))
+    serve_cfg = dataclasses.replace(cfg, n_layers=min(
+        cfg.n_layers, QWEN3MOE_FP32_LAYERS))
+    log(f"[sharded] {cfg.name}: train {train_cfg.n_layers} of "
+        f"{cfg.n_layers} layers in fp32 ({spec_elements(train_cfg)} "
+        f"parameter elements), serve {serve_cfg.n_layers} in fp32; widths "
+        f"as published (d_model {cfg.d_model}, {cfg.n_experts} experts "
+        f"top-{cfg.experts_per_token} of d_ff {cfg.expert_d_ff})")
+    return sharded_step_phase(torch, dev, train_cfg, serve_cfg=serve_cfg,
+                              serve_dtype="float32")
 
 
 # ---------------------------------------------------------------------------
@@ -1970,7 +2046,11 @@ def long_attention_phase(torch, dev, randn):
     ``_chunked_attention`` above its threshold (``oracle_failures``);
     then each case's kernel, oracle and SDPA times with a cold L2 beside
     its bound.  Returns (the counted launches, the kernels line's keys)."""
+    import contextlib
+
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
     from repro_torch.kernels import ops
     from repro_torch.models import layers
 
@@ -2022,15 +2102,18 @@ def long_attention_phase(torch, dev, randn):
                 q, k, v, causal=True), iters=10, warmup=2)
             plain_ms = cold_device_ms(torch, flush, lambda: layers.attention(
                 q, k, v, causal=True), iters=2, warmup=1)
-            lib_ms = None
-            if dtype == "bfloat16":
-                qh = q.transpose(1, 2).contiguous()
-                kh, vh = (t.transpose(1, 2).repeat_interleave(g, dim=1)
-                          .contiguous() for t in (k, v))
+            # SDPA on the kv heads expanded to q's; in fp32 its
+            # memory-efficient backend, which takes fp32 (never the math
+            # backend's 32 x 32,768^2 score tensor).
+            qh = q.transpose(1, 2).contiguous()
+            kh, vh = (t.transpose(1, 2).repeat_interleave(g, dim=1)
+                      .contiguous() for t in (k, v))
+            with (contextlib.nullcontext() if dtype == "bfloat16" else
+                  sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION)):
                 lib_ms = cold_device_ms(
                     torch, flush, lambda: F.scaled_dot_product_attention(
                         qh, kh, vh, is_causal=True), iters=10, warmup=2)
-                del qh, kh, vh
+            del qh, kh, vh
         keys.update({
             f"{key}_ms": ms, f"{key}_plain_ms": plain_ms,
             f"{key}_library_ms": lib_ms, f"{key}_bound_ms": bound[0],
@@ -2038,10 +2121,9 @@ def long_attention_phase(torch, dev, randn):
             f"{key}_flops": bound[3],
             f"{key}_shape": f"q (1,{hq},{LONG_SEQ},{hd}) k,v (1,{hkv},"
                             f"{LONG_SEQ},{hd}) {dtype} causal"})
-        lib = "none (fp32)" if lib_ms is None else f"{lib_ms:.4f} ms"
         log(f"[long] {tag}: flash_attention {ms:.4f} ms, bound "
             f"{bound[0]:.4f} ms ({bound[1]}), chunked oracle {plain_ms:.1f} "
-            f"ms, SDPA {lib}")
+            f"ms, SDPA {lib_ms:.4f} ms")
         del q, k, v
     del flush
     return launches, keys
@@ -2991,6 +3073,8 @@ def run(torch) -> int:
     host_mesh_phase(torch, dev)
     # -- 11c. llama3.2-1b on DTensor parameters over the (1, 1) mesh --------
     _, sharded_launches = sharded_step_phase(torch, dev)
+    # -- 11d. qwen3-moe-235b-a22b on DTensor parameters, the same mesh -----
+    _, moe_sharded_launches = moe_sharded_step_phase(torch, dev)
 
     # -- 12. kernel times at the serving shapes -------------------------------
     # Timed with a cold L2, as the layers between two kernel calls leave it
@@ -3055,6 +3139,7 @@ def run(torch) -> int:
     by_path = {ARCH: serve_launches, f"{ARCH} train": train_launches,
                f"{ARCH} train compressed": compress_launches,
                f"{ARCH} sharded": sharded_launches,
+               f"{QWEN3MOE} sharded": moe_sharded_launches,
                XLSTM: xlstm_launches,
                jcfg2.name: jamba_launches}
 

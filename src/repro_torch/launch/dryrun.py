@@ -26,18 +26,21 @@ chips multi-pod, and writes the roofline inputs, one JSON a cell under
     (``run_cell``'s ``costs``).
   * Collective wire bytes a device, with the reference's ring factors
     (``wire_bytes``).  For the archs whose every layer is attention with
-    a dense FFN (``counts_on_dtensors``), counted from the step itself
+    a dense or MoE FFN (``counts_on_dtensors``: the dense decoders,
+    qwen3-moe-235b-a22b and kimi-k2-1t-a32b), counted from the step itself
     (``dtensor_collectives``): the step runs once more on ``meta``, on
     DTensor parameters, inputs and optimizer state placed by the rules
     over ``mesh.counting_mesh`` (a process group of the layout's size
     whose collectives move nothing, started and destroyed by the pass),
-    and a ``CommDebugMode`` records every functional collective that
-    DTensor issues on rank 0, by kind, result bytes and group size: the
+    and a ``CommDebugMode`` records every functional collective that the
+    step issues on rank 0, by kind, result bytes and group size: the
     weight gathers, the tensor-parallel activation all-reduces (or, under
     "sp", their reduce-scatters and all-gathers), the decode's merge over
-    the sequence-cut cache, and the gradient reductions.  For the other
-    archs (MoE, mamba, mLSTM, sLSTM layers, which the DTensor forward
-    does not run) the count is analytic from the parameters' placements
+    the sequence-cut cache, the expert-parallel MoE's all-to-alls (2 a
+    layer forward, 2 more in a train step's backward) and its aux sums,
+    and the gradient reductions.  For the archs with mamba, mLSTM or
+    sLSTM layers (jamba-v0.1-52b, xlstm-125m), which the DTensor forward
+    does not run, the count is analytic from the parameters' placements
     (``analytic_collectives``): per leaf an all-gather over the mesh dims
     that shard it in the forward; for train a second in the backward, a
     reduce-scatter of its gradient over them (int8 with
@@ -83,7 +86,7 @@ from torch.utils.flop_counter import FlopCounterMode
 from ..configs import ALIASES, get_config
 from ..models.blocks import ATTN_KINDS
 from ..models.config import ALL_SHAPES, ModelConfig, ShapeConfig
-from ..models.lm import LM, layer_is_moe
+from ..models.lm import LM
 from ..optim import AdamWConfig
 from . import steps as S
 from .mesh import counting_mesh, make_layout_mesh
@@ -275,9 +278,9 @@ def cost_pass(cfg: ModelConfig, shape: ShapeConfig,
 # ---------------------------------------------------------------------------
 def counts_on_dtensors(cfg: ModelConfig) -> bool:
     """Whether the dry run counts this arch's collectives from the step on
-    DTensors: every layer attention (global or local) with a dense FFN."""
-    return all(kind in ATTN_KINDS and not layer_is_moe(cfg, li)
-               for li, kind in enumerate(cfg.full_pattern))
+    DTensors: every layer attention (global or local) with a dense or MoE
+    FFN."""
+    return all(kind in ATTN_KINDS for kind in cfg.full_pattern)
 
 
 def _count_mode():

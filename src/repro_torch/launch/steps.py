@@ -13,10 +13,13 @@ With ``TrainSettings.compress`` set, the gradients pass through int8
 Given ``rules``, each step runs under them (``use_rules``) on a model of
 DTensor parameters placed by them (``LM(..., rules=)``,
 ``convert.params_from_numpy(..., rules=)``): the port's counterpart of the
-JAX package's steps under ``use_rules`` and jit.  The batch may hold plain
-tensors that every rank has whole; the model places them.  The gradients
-come back placed as their parameters, and AdamW updates each rank's
-shards.
+JAX package's steps under ``use_rules`` and jit, for the archs whose
+layers are attention with a dense or MoE FFN (the expert leaves are cut on
+two mesh dims, "model" over the experts and "data" over d_model, and the
+expert-parallel MoE's all-to-alls are differentiated).  The batch may hold
+plain tensors that every rank has whole; the model places them.  The
+gradients come back placed as their parameters, and AdamW updates each
+rank's shards.
 
 Plus per-shape ``input_specs``: everything a step takes, as ``meta``
 tensors (DTensors placed by the rules when rules are given) that allocate

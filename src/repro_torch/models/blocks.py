@@ -22,7 +22,9 @@ its sequence dim, is written on each rank's own shard (``write_rows``).
 The attention block and the dense FFN constrain their activations where
 the JAX package's do (q, k, v, the attention output, the FFN's hidden
 activation, the layer's output), so on DTensor parameters they run as the
-JAX package's blocks do under its rules.  The recurrent kinds and the MoE
+JAX package's blocks do under its rules; the MoE FFN takes DTensor
+activations too (``moe.moe_apply``: the expert-parallel branch under
+"default" and "sp", the single shard under "fsdp").  The recurrent kinds
 take plain tensors only.
 """
 from __future__ import annotations

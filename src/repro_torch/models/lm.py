@@ -24,7 +24,9 @@ port's counterpart of the JAX package's parameters under its
 ``NamedSharding``s); the same entry points then run as the JAX package's
 steps do under ``use_rules``: the batch, positions and labels join the
 mesh (``sharding.place``), the activations are constrained where the JAX
-package's are, and the prefill's cache is placed by the cache specs.
+package's are, and the prefill's cache is placed by the cache specs.  An
+attention-and-MoE decoder runs so too: each MoE layer's aux loss is a
+replicated DTensor scalar, summed over the layers into the loss.
 """
 from __future__ import annotations
 
@@ -362,11 +364,14 @@ def run_layers(cfg: ModelConfig, layers, x, *, mode: str, positions,
 # ---------------------------------------------------------------------------
 # Rematerialization (the counterpart of the JAX package's ``lm._remat_wrap``)
 # ---------------------------------------------------------------------------
-_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default)
+# The matrix products, and the expert-parallel MoE's all-to-alls (so that
+# recomputing a layer moves nothing).
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                   torch.ops._c10d_functional.all_to_all_single.default)
 
 
 def _save_products(ctx, op, *args, **kwargs):
-    """"dots": keep the matrix products' outputs, recompute the rest."""
+    """"dots": keep the ``_SAVED_PRODUCTS``' outputs, recompute the rest."""
     return (CheckpointPolicy.MUST_SAVE if op in _SAVED_PRODUCTS
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
@@ -374,7 +379,8 @@ def _save_products(ctx, op, *args, **kwargs):
 def _remat_wrap(fn, remat: str):
     """``fn`` recomputed in the backward: "full" saves only its inputs,
     "dots" also the ``aten.mm`` / ``aten.bmm`` outputs (the JAX package
-    saves the dots without batch dims), "none" is ``fn`` itself.  The JAX
+    saves the dots without batch dims) and the all-to-alls', "none" is
+    ``fn`` itself.  The JAX
     package wraps one scanned period; the port wraps each layer."""
     if remat == "none":
         return fn

@@ -10,8 +10,10 @@ every leaf (norms included), and the moments are stored in ``state_dtype``.
 A tree here is a mapping from leaf names to tensors (``dict(model.
 named_parameters())``); gradients and moments are mappings with the same
 names.  The update writes the parameters and moments in place.  The leaves
-may be DTensors: the moments are placed as their parameters, each leaf's
-sum of squares is reduced over its shards, and the update is local.
+may be DTensors, cut on one mesh dim or two (the expert leaves: "model"
+over the experts, "data" over d_model): the moments are placed as their
+parameters, each leaf's sum of squares is reduced over its shards, and
+the update is local.
 """
 from __future__ import annotations
 

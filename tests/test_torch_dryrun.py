@@ -714,13 +714,148 @@ def test_records_say_which_count_they_carry():
     assert llama["all-reduce"]["count"] > 0
 
 
-def reference_collectives():
-    """The reference's ``parse_collectives`` of the SMOKE_CELLS, each
-    profile: run in a process with four host devices (``XLA_FLAGS``)."""
+# smoke(kimi-k2-1t-a32b) (2 layers, each attention and an MoE FFN of 8
+# experts top-2 with a shared expert) on the same cells and layout, by the
+# same count.  Under "default" and "sp" the MoE is expert parallel (ep = 2
+# over "model"): 2 all-to-alls a layer in prefill and decode, 4 in train
+# (the backward's two; remat "dots" keeps the forward's outputs); under
+# "fsdp" the expert axis is empty and the single-shard MoE gathers its
+# weights, with no all-to-all.  Beside each cell, the reference's
+# ``parse_collectives`` of the same cell (``--reference-collectives
+# kimi-k2-1t-a32b``), as kind: (count, result bytes); only the port's are
+# held.
+PINNED_MOE = {
+    # ref: all-reduce (17, 299124), all-gather (47, 686208),
+    # all-to-all (8, 32768), collective-permute (1, 64)
+    ("default", "train"): {"all-reduce": (39, 26444, 26444.0),
+                           "all-gather": (92, 731392, 365696.0),
+                           "reduce-scatter": (63, 215216, 215216.0),
+                           "all-to-all": (8, 16384, 8192.0)},
+    # ref: all-reduce (3, 12288), all-gather (22, 347776),
+    # all-to-all (3, 12288), collective-permute (1, 64)
+    ("default", "prefill"): {"all-reduce": (7, 6400, 6400.0),
+                             "all-gather": (40, 374848, 187424.0),
+                             "reduce-scatter": (8, 10240, 10240.0),
+                             "all-to-all": (4, 8192, 4096.0)},
+    # ref: all-reduce (7, 2128), all-gather (21, 314576),
+    # all-to-all (3, 8704), collective-permute (1, 8)
+    ("default", "decode"): {"all-reduce": (11, 2176, 2176.0),
+                            "all-gather": (42, 364552, 182276.0),
+                            "reduce-scatter": (8, 1280, 1280.0),
+                            "all-to-all": (4, 8192, 4096.0)},
+    # ref: all-reduce (9, 335512), all-gather (28, 348352),
+    # all-to-all (9, 28672)
+    ("fsdp", "train"): {"all-reduce": (16, 1304, 1304.0),
+                        "all-gather": (106, 1683552, 841776.0),
+                        "reduce-scatter": (34, 196608, 196608.0)},
+    # ref: all-reduce (2, 41216), all-gather (14, 231552),
+    # all-to-all (3, 8192)
+    ("fsdp", "prefill"): {"all-gather": (48, 848640, 424320.0),
+                          "reduce-scatter": (2, 3072, 3072.0)},
+    # ref: all-reduce (2, 8224), all-gather (14, 229648),
+    # all-to-all (3, 1024)
+    ("fsdp", "decode"): {"all-gather": (48, 837888, 418944.0),
+                         "reduce-scatter": (2, 3072, 3072.0)},
+    # ref: all-reduce (18, 361076), all-gather (45, 706688),
+    # all-to-all (19, 47232), collective-permute (1, 64)
+    ("sp", "train"): {"all-reduce": (35, 18252, 18252.0),
+                      "all-gather": (93, 716896, 358448.0),
+                      "reduce-scatter": (55, 195728, 195728.0),
+                      "all-to-all": (8, 16384, 8192.0)},
+    # ref: all-reduce (5, 12808), all-gather (20, 343168),
+    # all-to-all (6, 16416), collective-permute (2, 576)
+    ("sp", "prefill"): {"all-reduce": (6, 4352, 4352.0),
+                        "all-gather": (42, 362528, 181264.0),
+                        "reduce-scatter": (6, 7168, 7168.0),
+                        "all-to-all": (4, 8192, 4096.0)},
+    # ref: all-reduce (7, 2128), all-gather (21, 314576),
+    # all-to-all (3, 8704), collective-permute (1, 8)
+    ("sp", "decode"): {"all-reduce": (11, 2176, 2176.0),
+                       "all-gather": (42, 364552, 182276.0),
+                       "reduce-scatter": (8, 1280, 1280.0),
+                       "all-to-all": (4, 8192, 4096.0)},
+}
+MOE_ARCH = "kimi-k2-1t-a32b"
+
+
+@pytest.mark.parametrize("profile,kind", list(PINNED_MOE))
+def test_dtensor_collectives_of_smoke_kimi_are_pinned(profile, kind):
+    """Each kind's count, result bytes and wire bytes a device, as the
+    DTensor step of smoke kimi-k2 issues them on rank 0 of the (2, 2)
+    layout, the expert-parallel all-to-alls included; the pass leaves no
+    process group."""
+    cfg = smoke(get_config(MOE_ARCH))
+    got = dryrun.dtensor_collectives(cfg, smoke_cell(kind),
+                                     steps.TrainSettings(), LAYOUT_2X2,
+                                     profile)
+    assert not dist.is_initialized()
+    held = {k: (v["count"], int(v["result_bytes"]), v["bytes"])
+            for k, v in got.items() if v["count"]}
+    assert held == PINNED_MOE[profile, kind]
+
+
+@pytest.mark.parametrize("profile", PROFILES)
+def test_moe_all_to_alls_are_counted_per_layer(profile):
+    """Every all-to-all of smoke kimi-k2's steps is the MoE's, over the
+    two "model" ranks, carrying one (E, C, d_model) bf16 capacity buffer:
+    2 a layer in prefill and decode and 4 in train under "default" and
+    "sp", none under "fsdp"."""
+    cfg = smoke(get_config(MOE_ARCH))
+    n_moe = sum(cfg.is_moe_layer(li) for li in range(cfg.n_layers))
+    assert n_moe == cfg.n_layers == 2
+    for kind in SMOKE_CELLS:
+        calls = dryrun.collective_calls(cfg, smoke_cell(kind),
+                                        steps.TrainSettings(), LAYOUT_2X2,
+                                        profile)
+        a2a = [(res, g) for op, res, g in calls if op == "all-to-all"]
+        if profile == "fsdp":
+            assert a2a == [], kind
+            continue
+        assert len(a2a) == (4 if kind == "train" else 2) * n_moe, kind
+        B, S = SMOKE_CELLS[kind]
+        tokens = B * (1 if kind == "decode" else S) // 4   # a shard's
+        cap = max(cfg.experts_per_token, int(
+            cfg.capacity_factor * tokens * cfg.experts_per_token
+            / cfg.n_experts))
+        assert set(a2a) == {(cfg.n_experts * cap * cfg.d_model * 2, 2)}, \
+            kind
+
+
+def test_moe_records_carry_the_dtensor_count():
+    """qwen3-moe-235b-a22b and kimi-k2-1t-a32b (attention and MoE FFNs)
+    carry the count of their DTensor step on the (16, 16) layout, with 2
+    all-to-alls a layer in decode; jamba-v0.1-52b (mamba layers, which the
+    DTensor forward does not run) the analytic one, with none.  The cost
+    pass is given, so only the counts run; no process group is left."""
+    settings = steps.TrainSettings()
+    archs = ("qwen3-moe-235b-a22b", "kimi-k2-1t-a32b", "jamba-v0.1-52b")
+    costs = {(a, "decode_32k"): {"flops": 1, "flops_by_op": {}, "bytes": 1,
+                                 "temp_bytes": 1, "seconds": 0.0}
+             for a in archs}
+    for arch in archs:
+        cfg = get_config(arch)
+        rec = dryrun.run_cell(arch, DECODE_32K, False, settings, costs=costs)
+        assert not dist.is_initialized()
+        coll = rec["collectives"]
+        by = "analytic" if arch.startswith("jamba") else "dtensor"
+        assert dryrun.counts_on_dtensors(cfg) == (by == "dtensor")
+        assert {v["counted_by"] for v in coll.values()} == {by}, arch
+        n_moe = sum(cfg.is_moe_layer(li) for li in range(cfg.n_layers))
+        want = 0 if by == "analytic" else 2 * n_moe
+        assert coll["all-to-all"]["count"] == want
+        assert want > 0 or by == "analytic"
+        assert rec["collective_bytes_per_device"] == sum(
+            v["bytes"] for v in coll.values())
+
+
+def reference_collectives(arch="llama3.2-1b"):
+    """The reference's ``parse_collectives`` of the SMOKE_CELLS of
+    ``smoke(arch)``, each profile: run in a process with four host devices
+    (``XLA_FLAGS``)."""
     from repro.configs import get_config as jget_config
     from repro.launch.mesh import make_host_mesh
     mesh = make_host_mesh(model=2)
-    cfg = jmc.smoke(jget_config("llama3.2-1b"))
+    cfg = jmc.smoke(jget_config(arch))
     st = jsteps.TrainSettings()
     for profile in PROFILES:
         rules = jsh.make_rules(mesh, profile)
@@ -747,5 +882,7 @@ def reference_collectives():
 if __name__ == "__main__":
     # XLA_FLAGS=--xla_force_host_platform_device_count=4 JAX_PLATFORMS=cpu
     # PYTHONPATH=src python tests/test_torch_dryrun.py --reference-collectives
-    assert sys.argv[1:] == ["--reference-collectives"]
-    reference_collectives()
+    # [ARCH]      (default llama3.2-1b; kimi-k2-1t-a32b for PINNED_MOE)
+    assert sys.argv[1:2] == ["--reference-collectives"] and \
+        len(sys.argv) <= 3
+    reference_collectives(*sys.argv[2:])

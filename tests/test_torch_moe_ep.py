@@ -26,6 +26,14 @@ are the same 3 tokens): the port's expert-parallel path is held to the
 shard map at 2e-5, and shown to part from its own single-shard path exactly
 where, and by as much as, the JAX package's does.
 
+The gradients of a fixed linear functional of the output (each case's
+cotangent ``ct_*`` drawn with numpy) plus the aux loss, with respect to x,
+the router, the shared expert and each rank's block of the expert leaves,
+are held to ``jax.grad`` of the same functional of the shard map; and the
+gradient with respect to each rank's gates through ``moe.dispatch`` and
+``_combine`` to ``jax.grad`` through ``_moe_shardmap``, zero on both sides
+at every assignment the shard's capacity dropped.
+
     python tests/test_torch_moe_ep.py --jax IN.npz OUT.npz   # JAX side
 """
 import datetime
@@ -53,6 +61,10 @@ CASES = {"1x4-T16": ((1, 4), (2, 8)),
 # The cases whose shard capacities drop other assignments than the single
 # shard's.
 PARTS = ("1x4-T16", "2x2-T8", "2x2-T6")
+# The cases where a shard's own capacity drops assignments: at 2x2-T5 each
+# shard routes all 5 tokens at the single shard's capacity; at 2x2-T8 and
+# 2x2-T6 only the single shard drops.
+SHARD_DROPS = ("1x4-T16", "2x2-T5")
 PROMPT, MAX_LEN = (2, 8), 16     # the LM check: smoke kimi on mesh (1, 4)
 TIMEOUT_S = 120                  # each side, from its start
 
@@ -73,6 +85,8 @@ def make_inputs(path):
            for n, s in moe_specs(cfg).items()}
     for i, (name, (_, (B, S))) in enumerate(CASES.items()):
         inp[f"x_{name}"] = np.random.RandomState(1 + i).randn(
+            B, S, cfg.d_model).astype(np.float32)
+        inp[f"ct_{name}"] = np.random.RandomState(20 + i).randn(
             B, S, cfg.d_model).astype(np.float32)
     # Two identical requests: an expert that two of the 3 tokens pick takes
     # 4 assignments against the single shard's capacity of 2, and 2 in each
@@ -113,6 +127,29 @@ def jax_side(inp_path, out_path):
         out[f"out_{name}"] = np.asarray(y)
         out[f"aux_{name}"] = np.asarray(aux)
         out[f"single_{name}"] = np.asarray(single)
+        ct = jnp.asarray(inp[f"ct_{name}"])
+        rules = make_rules(mesh)
+
+        def functional(p, x):
+            with use_rules(rules):
+                y, aux = moe.moe_apply(cfg, p, x)
+            return jnp.sum(y * ct) + aux
+
+        gp, gx = jax.jit(jax.grad(functional, argnums=(0, 1)))(params, x)
+        out[f"grad_{name}/x"] = np.asarray(gx)
+        for n, g in gp.items():
+            out[f"grad_{name}/{n}"] = np.asarray(g)
+        # Through the shard map alone, with respect to the gates.
+        xf = x.reshape(-1, cfg.d_model)
+        gates, ids, _ = moe._route(cfg, params["router"], xf)
+
+        def through_gates(g):
+            with use_rules(rules):
+                y = moe._moe_shardmap(cfg, params, xf, g, ids, rules, ep)
+            return jnp.sum(y * ct.reshape(y.shape))
+
+        out[f"gates_grad_{name}"] = np.asarray(
+            jax.jit(jax.grad(through_gates))(gates))
     np.savez(out_path, **out)
 
 
@@ -148,14 +185,7 @@ def torch_rank(rank, init, inp_path, out_dir):
             res[f"aux_{name}"] = aux.numpy()
             res[f"sizes_{name}"] = np.array([rules.axis_size("batch"),
                                              rules.axis_size("expert")])
-            # With grad on and an input that requires it, the branch
-            # refuses before any collective.
-            try:
-                with use_rules(rules):
-                    moe.moe_apply(cfg, params, x.requires_grad_())
-                res[f"refused_{name}"] = np.array(0)
-            except ValueError:
-                res[f"refused_{name}"] = np.array(1)
+            res.update(rank_grads(cfg, name, params, x, inp, rules, mesh))
 
         # The LM: smoke kimi's single-shard prefill and one decode step;
         # then its experts cut to this rank's block on mesh (1, 4), the
@@ -181,6 +211,48 @@ def torch_rank(rank, init, inp_path, out_dir):
         np.savez(Path(out_dir) / f"rank{rank}.npz", **res)
     finally:
         dist.destroy_process_group()
+
+
+def rank_grads(cfg, name, params, x, inp, rules, mesh):
+    """This rank's gradients of sum(out · ct) + aux with respect to x, the
+    router, the shared expert and its block of the expert leaves; and of
+    its token shard's sum(out · ct) with respect to the shard's gates
+    through ``moe.dispatch`` and ``_combine``, beside the assignments the
+    shard's capacity kept."""
+    from repro_torch.launch.sharding import use_rules
+    from repro_torch.models import moe
+    ct = torch.from_numpy(inp[f"ct_{name}"])
+    leaves = {n: t.clone().requires_grad_() for n, t in params.items()}
+    xg = x.clone().requires_grad_()
+    with use_rules(rules):
+        y, aux = moe.moe_apply(cfg, leaves, xg)
+        grads = torch.autograd.grad((y * ct).sum() + aux,
+                                    [xg] + list(leaves.values()))
+    res = {f"grad_{name}/x": grads[0].numpy()}
+    res.update({f"grad_{name}/{n}": g.numpy()
+                for n, g in zip(leaves, grads[1:])})
+    ep = rules.axis_size("expert")
+    e, k, d = cfg.n_experts, cfg.experts_per_token, cfg.d_model
+    xf, ctf = x.reshape(-1, d), ct.reshape(-1, d)
+    gates, ids, _ = moe._route(cfg, params["router"], xf)
+    tok_axes, t_local, cap = moe.token_split(cfg, rules, xf.shape[0], ep)
+    shard = 0
+    for a in tok_axes:
+        shard = shard * rules.sizes[a] + mesh.get_local_rank(a)
+    rows = slice(shard * t_local, (shard + 1) * t_local)
+    g = gates[rows].detach().requires_grad_()
+    buf, slot, keep = moe._fill_capacity_buffers(xf[rows], g, ids[rows], e,
+                                                 cap)
+    out = moe._combine(
+        moe.dispatch({n: params[n] for n in moe.EXPERT_LEAVES}, buf,
+                     (mesh, mesh.mesh_dim_names.index("model")), ep),
+        slot, keep, g, t_local, k)
+    (gg,) = torch.autograd.grad((out * ctf[rows]).sum(), [g])
+    res[f"gates_grad_{name}"] = gg.numpy()
+    res[f"keep_{name}"] = keep.reshape(t_local, k).numpy()
+    res[f"rows_{name}"] = np.array([rows.start, rows.stop])
+    res[f"model_rank_{name}"] = np.array(mesh.get_local_rank("model"))
+    return res
 
 
 def _shard_experts(model, rank, ep):
@@ -288,10 +360,40 @@ def test_expert_parallel_parts_from_single_shard_where_jax_does(name, runs):
         assert jax_gap < TOL and port_gap < TOL
 
 
-def test_expert_parallel_refuses_grad(runs):
-    _, _, ranks = runs
-    assert all(int(got[f"refused_{name}"]) == 1
-               for got in ranks for name in CASES)
+@pytest.mark.parametrize("name", list(CASES))
+def test_expert_parallel_grads_match_jax_shard_map(name, runs):
+    """The gradients of sum(out · ct) + aux on every rank within fp32 2e-5
+    of ``jax.grad`` through the shard map: x, the router and the shared
+    expert whole, ``w_gate`` / ``w_up`` / ``w_down`` as the rank's block of
+    E/ep experts.  The gradient with respect to each shard's gates equals
+    the JAX package's rows of it, and is zero on both sides at every
+    assignment the shard dropped (some are, in ``SHARD_DROPS``)."""
+    from repro_torch.models.moe import EXPERT_LEAVES
+    _, want, ranks = runs
+    (dp, ep), _ = CASES[name]
+    el = smoke_cfg().n_experts // ep
+    keys = [k for k in want if k.startswith(f"grad_{name}/")]
+    assert {k.split("/")[1] for k in keys} >= {"x", "router", "ws_gate",
+                                                  *EXPERT_LEAVES}
+    dropped = 0
+    for r, got in enumerate(ranks):
+        m = int(got[f"model_rank_{name}"])
+        for key in keys:
+            w = want[key]
+            if key.split("/")[1] in EXPERT_LEAVES:
+                w = w[m * el:(m + 1) * el]
+            np.testing.assert_allclose(got[key], w, rtol=TOL, atol=TOL,
+                                       err_msg=f"rank {r} {key}")
+        lo, hi = got[f"rows_{name}"]
+        keep = got[f"keep_{name}"]
+        port, jax_rows = got[f"gates_grad_{name}"], want[
+            f"gates_grad_{name}"][lo:hi]
+        np.testing.assert_allclose(port, jax_rows, rtol=TOL, atol=TOL,
+                                   err_msg=f"rank {r} gates")
+        assert not port[~keep].any() and not jax_rows[~keep].any()
+        assert np.abs(port[keep]).min() > 0
+        dropped += int((~keep).sum())
+    assert (dropped > 0) == (name in SHARD_DROPS)
 
 
 def test_sharded_lm_decodes_as_the_single_shard_model(runs):
