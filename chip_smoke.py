@@ -88,6 +88,19 @@ Phases, each of which must pass (any failure exits non-zero):
      DTensors; the expert-parallel all-to-alls and their backward run on
      CPU ranks only (tests/test_torch_moe_ep.py,
      tests/test_torch_sharded_moe_step.py);
+11e. jamba-v0.1-52b and xlstm-125m at full width on DTensor parameters
+     over the same (1, 1) NCCL mesh, each profile
+     (``recurrent_sharded_step_phase``): Jamba's fp32 train step of 11c
+     cut to its first 2 layers (a mamba mixer with a dense FFN, then one
+     with its 16-expert MoE: 3.74 G parameters, the plain run's leaves
+     waiting on the host) and an fp32 prefill of 4 x 256 and 4 decode
+     steps at phase 9's 8 layers (path "jamba-v0.1-52b sharded": 7 mamba
+     layers through ``mamba_scan``, the attention layer through
+     ``flash_attention`` and ``flash_decode``); xLSTM whole, 11c's fp32
+     train step and bf16 prefill and decode steps (path "xlstm-125m
+     sharded": its 10 mLSTM layers through ``mlstm_scan``).  The scans run
+     on the DTensors' local shards; each run is held to the plain tensors'
+     as in 11c, and every scan must launch once a layer a pass;
  12. one ``flash_attention`` and one ``flash_decode`` call under
      torch.profiler, each exactly one device kernel, and each scan call
      (one kernel; two for the ``mlstm_scan`` prefill: scores, then the
@@ -195,7 +208,7 @@ Phases, each of which must pass (any failure exits non-zero):
      JAX package's (``ROT_PINNED``); it launches no kernel;
 then one ``{"kernels": [...]}`` line, whose launches are those of every
 served path's counted wave (phases 5, 8, 10, 14, 18, 20, 23), of the
-training runs (phases 11 and 11b), of phases 11c-11d's DTensor runs, of the
+training runs (phases 11 and 11b), of phases 11c-11e's DTensor runs, of the
 engine runs (phase 24) and of phase 25a's counted calls.  The expert-parallel MoE
 (``moe._moe_expert_parallel``) does not run here: NCCL puts one rank on
 a card, and the script needs one card; tests/test_torch_moe_ep.py holds
@@ -375,6 +388,11 @@ SHARDED_TRAIN, SHARDED_DECODE_STEPS = (2, 512), 4
 # attention and router 0.072 G), so parameters, gradients and both moments
 # in fp32 take 59.7 GB; its prefill and decode at QWEN3MOE_FP32_LAYERS.
 MOE_SHARDED_TRAIN_LAYERS = 1
+# Phase 11e: jamba-v0.1-52b's DTensor train step cut to its first 2 layers
+# (a mamba mixer with a dense FFN, then one with a 16-expert MoE: 3.74 G
+# parameters, 59.9 GB in fp32 with gradients and both moments); its
+# prefill and decode at JAMBA_FP32_LAYERS.  xlstm-125m runs whole.
+JAMBA_SHARDED_TRAIN_LAYERS = 2
 COMPRESS_ERR_SLACK = 2.0 ** -16
 # Phase 25: flash_attention at the prefill_32k cell's 32,768 query tokens
 # (src/repro/models/config.py:192), held against the port's
@@ -636,16 +654,18 @@ def sass_forms(lib: Path, opcode: str) -> Dict[str, Dict[str, int]]:
     return out
 
 
-def wave_launches(cfg) -> Dict[str, int]:
-    """Kernel launches of one served wave (``generate``: the prefill, then
-    NEW - 1 decode steps) of ``cfg``: each attention layer (global or
-    local) launches flash_attention in the prefill and flash_decode in
-    every decode step; each mLSTM and mamba layer its scan in every pass."""
+def wave_launches(cfg, decode_steps=NEW - 1) -> Dict[str, int]:
+    """Kernel launches of one served wave of ``cfg`` (``generate``: the
+    prefill, then ``decode_steps`` decode steps): each attention layer
+    (global or local) launches flash_attention in the prefill and
+    flash_decode in every decode step; each mLSTM and mamba layer its scan
+    in every pass."""
     kinds = cfg.full_pattern
     n_attn = sum(k in ("attn", "attn_local") for k in kinds)
-    return {"flash_attention": n_attn, "flash_decode": n_attn * (NEW - 1),
-            "mlstm_scan": kinds.count("mlstm") * NEW,
-            "mamba_scan": kinds.count("mamba") * NEW}
+    passes = 1 + decode_steps
+    return {"flash_attention": n_attn, "flash_decode": n_attn * decode_steps,
+            "mlstm_scan": kinds.count("mlstm") * passes,
+            "mamba_scan": kinds.count("mamba") * passes}
 
 
 def decode_floor(cfg, batch, kv_len, itemsize=2):
@@ -1858,13 +1878,17 @@ def sharded_step_phase(torch, dev, cfg=None, *, serve_cfg=None,
 
     def held(what, got, want, tol):
         """Bit for bit, or the largest difference, held to ``tol``; each
-        wanted tensor is brought to its counterpart's device in turn."""
-        err, exact = 0.0, True
+        wanted tensor is brought to its counterpart's device in turn.  A
+        value that is not finite, on either side, fails."""
+        err, exact, finite = 0.0, True, True
         for g, w in zip(got, want):
             w = w.to(g.device)
+            finite = finite and bool(torch.isfinite(g).all()
+                                     and torch.isfinite(w).all())
             err = max(err, float((g.float() - w.float()).abs().max()))
             exact = exact and torch.equal(g, w)
             del w
+        check(finite, f"[{tag}] {what}: a value is not finite")
         check(err <= tol, f"[{tag}] {what}: {err} > {tol}")
         return {"exact": exact, "max_abs_err": err}
 
@@ -1936,12 +1960,12 @@ def sharded_step_phase(torch, dev, cfg=None, *, serve_cfg=None,
             dist.destroy_process_group()
     check(not dist.is_initialized(), "the process group outlived the phase")
     if dev.type == "cuda":
-        want_launches = len(PROFILES) * serve_cfg.n_layers
-        check(launches.get("flash_attention") == want_launches
-              and launches.get("flash_decode") == want_launches
-              * SHARDED_DECODE_STEPS,
-              f"[{tag}] launches {launches}: the DTensor runs did not go "
-              f"through the attention kernels once a layer a pass")
+        want_launches = {k: len(PROFILES) * n for k, n in wave_launches(
+            serve_cfg, SHARDED_DECODE_STEPS).items()}
+        check(launches == want_launches,
+              f"[{tag}] launches {launches}, not {want_launches}: the "
+              f"DTensor runs did not go through the kernels once a layer a "
+              f"pass")
     out["launches"] = launches
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"[{tag}] {json.dumps(out)}")
@@ -1977,6 +2001,34 @@ def moe_sharded_step_phase(torch, dev, cfg=None):
         f"top-{cfg.experts_per_token} of d_ff {cfg.expert_d_ff})")
     return sharded_step_phase(torch, dev, train_cfg, serve_cfg=serve_cfg,
                               serve_dtype="float32")
+
+
+def recurrent_sharded_step_phase(torch, dev, cfgs=None):
+    """Phase 11e: jamba-v0.1-52b and xlstm-125m at full width (``cfgs``,
+    {name: config}, replaces them, as the CPU test gives smoke configs) on
+    DTensor parameters over the (1, 1) mesh under each profile
+    (``sharded_step_phase``).  Jamba: the fp32 train step cut to its first
+    JAMBA_SHARDED_TRAIN_LAYERS layers (a mamba mixer with a dense FFN,
+    then one with an MoE; the plain run's leaves wait on the host), an
+    fp32 prefill and decode steps at phase 9's JAMBA_FP32_LAYERS (one
+    period, its attention layer included).  xLSTM whole: the fp32 train
+    step, a bf16 prefill and decode steps.  The mamba and mLSTM scans run
+    on the DTensors' local shards.  Returns [(out, launches)] for Jamba,
+    then xLSTM."""
+    from repro_torch.configs import get_config
+    cfgs = cfgs or {a: get_config(a) for a in (JAMBA, XLSTM)}
+    jcfg, xcfg = cfgs[JAMBA], cfgs[XLSTM]
+    train_cfg = dataclasses.replace(jcfg, n_layers=min(
+        jcfg.n_layers, JAMBA_SHARDED_TRAIN_LAYERS))
+    serve_cfg = dataclasses.replace(jcfg, n_layers=min(
+        jcfg.n_layers, JAMBA_FP32_LAYERS))
+    log(f"[sharded] {jcfg.name}: train {train_cfg.n_layers} of "
+        f"{jcfg.n_layers} layers in fp32 ({spec_elements(train_cfg)} "
+        f"parameter elements), serve {serve_cfg.n_layers} in fp32; "
+        f"{xcfg.name} whole (train fp32, serve bf16); widths as published")
+    return [sharded_step_phase(torch, dev, train_cfg, serve_cfg=serve_cfg,
+                               serve_dtype="float32"),
+            sharded_step_phase(torch, dev, xcfg)]
 
 
 # ---------------------------------------------------------------------------
@@ -3075,6 +3127,11 @@ def run(torch) -> int:
     _, sharded_launches = sharded_step_phase(torch, dev)
     # -- 11d. qwen3-moe-235b-a22b on DTensor parameters, the same mesh -----
     _, moe_sharded_launches = moe_sharded_step_phase(torch, dev)
+    # -- 11e. jamba-v0.1-52b and xlstm-125m on DTensor parameters ---------
+    t_11e = time.perf_counter()
+    (_, jamba_sharded_launches), (_, xlstm_sharded_launches) = \
+        recurrent_sharded_step_phase(torch, dev)
+    log(f"[sharded] phase 11e {time.perf_counter() - t_11e:.1f} s")
 
     # -- 12. kernel times at the serving shapes -------------------------------
     # Timed with a cold L2, as the layers between two kernel calls leave it
@@ -3140,6 +3197,8 @@ def run(torch) -> int:
                f"{ARCH} train compressed": compress_launches,
                f"{ARCH} sharded": sharded_launches,
                f"{QWEN3MOE} sharded": moe_sharded_launches,
+               f"{JAMBA} sharded": jamba_sharded_launches,
+               f"{XLSTM} sharded": xlstm_sharded_launches,
                XLSTM: xlstm_launches,
                jcfg2.name: jamba_launches}
 

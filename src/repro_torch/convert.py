@@ -10,8 +10,8 @@ that layer's ``ParamTree``, at any depth.
 
 ``params_from_numpy`` loads such a flat dict into a new ``LM`` (with
 ``rules``, of DTensor parameters, each rank copying in its own shard: the
-MoE leaves too, the experts cut on "model" and "data" as
-``rules.placements`` says);
+MoE leaves too, the experts cut on "model" and "data", and the mamba,
+mLSTM and sLSTM leaves, as ``rules.placements`` says);
 ``numpy_from_params`` goes back (``ckpt.shards`` does the same for the
 whole training state, the AdamW moments included).  ``expert_block`` cuts
 one MoE layer's expert weights to what one rank of the expert-parallel MoE

@@ -10,7 +10,10 @@ and falls back.
 train) runs ``flash_attention``; a one-token decode call against the cache
 runs ``flash_decode``.  The head-major views it passes are transposes, not
 copies.  On DTensors it runs them on each rank's local shards
-(``layers.attention_on_shards``).  The four kernel wrappers take local
+(``layers.attention_on_shards``).  The scans' DTensor entries are
+``selective_scan_on_shards`` and ``mlstm_on_shards``: a scan (the kernel
+wrapper, or the model's plain version) on each rank's local shards, cut
+where the recurrence allows it.  The four kernel wrappers take local
 tensors only and raise ``TypeError`` on a DTensor, whose storage is not
 the tensor it stands for.
 """
@@ -33,8 +36,8 @@ def _local_only(name: str, *tensors) -> None:
     if any(is_dtensor(t) for t in tensors):
         raise TypeError(
             f"{name} takes local tensors, not a DTensor: run it on each "
-            f"rank's shards (ops.attention does, through "
-            f"layers.attention_on_shards)")
+            f"rank's shards (ops.attention, selective_scan_on_shards and "
+            f"mlstm_on_shards do)")
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
@@ -122,6 +125,95 @@ def mlstm(q, k, v, i_gate, f_gate, c0, *, n0=None,
         return y.to(q.dtype), c_last, n_last
     return mlstm_scan.mlstm_scan(q, k, v, i_gate, f_gate, c0, chunk=chunk,
                                  out=out, n0=n0, n_out=n_out)
+
+
+def _shards(ts, plan, grads):
+    """The local tensors of the DTensors ``ts``, each first redistributed
+    to its row of ``plan`` (placements per mesh dim; a mesh dim of one
+    rank moves nothing), its gradient declared placed as its row of
+    ``grads``."""
+    return [t.redistribute(t.device_mesh, want).to_local(grad_placements=g)
+            for t, want, g in zip(ts, plan, grads)]
+
+
+def selective_scan_on_shards(scan, u, dt, a, b, c, h0, *, out=None):
+    """``scan`` (``selective_scan``'s contract: the kernel wrapper, or the
+    model's plain chunked scan) on each rank's local shards of the
+    DTensors u, dt (B,S,di), a (di,N), b, c (B,S,N) and h0 (B,di,N).
+    Returns (y placed as u's shards, h_last placed as h0's); h_last is
+    ``out`` (a DTensor cache placed as h0's shards) when given, written in
+    place.
+
+    The channels are independent: per mesh dim, a block of the batch (u
+    ``Shard(0)``: b, c and h0 cut alike, a whole) or of ``di`` (u
+    ``Shard(2)``: a cut on di as u is, h0 on its dim 1, b and c whole).
+    Any other placement of u (a cut sequence, a pending sum) is made whole
+    first.  A rank that uses a whole a (or b, c) with its block declares
+    that gradient a pending sum over the mesh dim."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from ..launch.sharding import from_local
+    mesh = u.device_mesh
+    rows = []          # per mesh dim: (u and dt, a, b and c, h0), a's
+    for p in u.placements:           # and b's and c's gradients
+        if p == Shard(0):
+            rows.append((p, Replicate(), p, p, Partial(), p))
+        elif p == Shard(2):
+            rows.append((p, Shard(0), Replicate(), Shard(1), Shard(0),
+                         Partial()))
+        else:
+            rows.append((Replicate(),) * 6)
+    up, ap, bp, hp, ag, bg = (list(r) for r in zip(*rows))
+    ul, dtl, al, bl, cl, hl = _shards((u, dt, a, b, c, h0),
+                                      (up, up, ap, bp, bp, hp),
+                                      (up, up, ag, bg, bg, hp))
+    kw = {} if out is None else {"out": _target(out, hp)}
+    y, h_last = scan(ul, dtl, al, bl, cl, hl, **kw)
+    return (from_local(y, mesh, up, u.shape),
+            out if out is not None else from_local(h_last, mesh, hp,
+                                                   h0.shape))
+
+
+def mlstm_on_shards(cell, q, k, v, i_gate, f_gate, c0, n0, *, out=None,
+                    n_out=None):
+    """``cell`` (``mlstm``'s contract with ``n0``: the kernel wrapper, or
+    the model's plain chunkwise cell) on each rank's local shards of the
+    DTensors q, k, v (B,S,H,hd), i, f (B,S,H), c0 (B,H,hd,hd) and n0
+    (B,H,hd).  Returns (y, c_last, n_last), placed as the shards the cell
+    ran on; c_last and n_last are ``out`` and ``n_out`` (DTensor caches
+    placed so) when given, written in place.
+
+    Only the batch is cut (the JAX package's cache ``C`` is ("batch",
+    None, None, None)): per mesh dim every tensor holds the same block of
+    the batch where q does, else all are whole (a cut head dim, a pending
+    sum, a cut sequence are gathered first)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from ..launch.sharding import from_local
+    mesh = q.device_mesh
+    plan = [p if p == Shard(0) else Replicate() for p in q.placements]
+    ts = (q, k, v, i_gate, f_gate, c0, n0)
+    ql, kl, vl, il, fl, cl, nl = _shards(ts, (plan,) * 7, (plan,) * 7)
+    kw = {} if out is None else {"out": _target(out, plan),
+                                 "n_out": _target(n_out, plan)}
+    y, c_last, n_last = cell(ql, kl, vl, il, fl, cl, n0=nl, **kw)
+    if out is None:
+        return (from_local(y, mesh, plan, q.shape),
+                from_local(c_last, mesh, plan, c0.shape),
+                from_local(n_last, mesh, plan, n0.shape))
+    return from_local(y, mesh, plan, q.shape), out, n_out
+
+
+def _target(out, placements):
+    """The local tensor of the DTensor ``out``, which a scan on shards
+    placed as ``placements`` writes in place: its shard must be theirs on
+    every mesh dim of more than one rank (a cache placed by its spec is)."""
+    mesh = out.device_mesh
+    if any(mesh.size(d) > 1 and p != q
+           for d, (p, q) in enumerate(zip(out.placements, placements))):
+        raise ValueError(f"out is placed {tuple(out.placements)}, the scan's "
+                         f"state {tuple(placements)}")
+    return out.to_local()
 
 
 _KERNELS = (_fa, decode_attention, mlstm_scan, mamba_scan)

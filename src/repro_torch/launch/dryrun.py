@@ -25,29 +25,23 @@ chips multi-pod, and writes the roofline inputs, one JSON a cell under
     for every layout of a cell, so ``main`` runs it once per arch x shape
     (``run_cell``'s ``costs``).
   * Collective wire bytes a device, with the reference's ring factors
-    (``wire_bytes``).  For the archs whose every layer is attention with
-    a dense or MoE FFN (``counts_on_dtensors``: the dense decoders,
-    qwen3-moe-235b-a22b and kimi-k2-1t-a32b), counted from the step itself
+    (``wire_bytes``), counted from the step itself for every arch
     (``dtensor_collectives``): the step runs once more on ``meta``, on
     DTensor parameters, inputs and optimizer state placed by the rules
     over ``mesh.counting_mesh`` (a process group of the layout's size
     whose collectives move nothing, started and destroyed by the pass),
     and a ``CommDebugMode`` records every functional collective that the
     step issues on rank 0, by kind, result bytes and group size: the
-    weight gathers, the tensor-parallel activation all-reduces (or, under
-    "sp", their reduce-scatters and all-gathers), the decode's merge over
-    the sequence-cut cache, the expert-parallel MoE's all-to-alls (2 a
-    layer forward, 2 more in a train step's backward) and its aux sums,
-    and the gradient reductions.  For the archs with mamba, mLSTM or
-    sLSTM layers (jamba-v0.1-52b, xlstm-125m), which the DTensor forward
-    does not run, the count is analytic from the parameters' placements
-    (``analytic_collectives``): per leaf an all-gather over the mesh dims
-    that shard it in the forward; for train a second in the backward, a
-    reduce-scatter of its gradient over them (int8 with
-    ``settings.compress``), and an all-reduce over the batch dims it is
-    replicated on; no activation collective and no MoE all-to-all.  Each
-    collective kind's entry says which count it carries
-    (``counted_by``: "dtensor" or "analytic").
+    weight gathers, the tensor-parallel activation all-reduces (the
+    attention's and FFN's outputs, the mamba scan's b and c, the mLSTM's
+    q, k and v; under "sp" reduce-scatters and the gathers of the
+    sequence before each projection and each scan), the decode's merge
+    over the sequence-cut cache, the expert-parallel MoE's all-to-alls (2
+    a layer forward, 2 more in a train step's backward) and its aux sums,
+    and the gradient reductions.  The recurrent layers' scans and the
+    sLSTM's time loop run on each rank's local shards and issue none of
+    their own.  Each collective kind's entry carries ``counted_by``:
+    "dtensor".
   * Memory a device: ``argument_bytes`` the exact local shard bytes of the
     step's inputs from the structs' placements (this rank's, the largest
     where a dim is cut ragged), ``output_bytes`` the step's outputs placed
@@ -71,7 +65,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import math
 import os
 import sys
 import time
@@ -84,7 +77,6 @@ from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import FlopCounterMode
 
 from ..configs import ALIASES, get_config
-from ..models.blocks import ATTN_KINDS
 from ..models.config import ALL_SHAPES, ModelConfig, ShapeConfig
 from ..models.lm import LM
 from ..optim import AdamWConfig
@@ -130,13 +122,6 @@ def wire_bytes(op: str, res: float, g: int) -> float:
     else:  # collective-permute
         wire = res
     return wire
-
-
-def _merge_scaled(base: Dict, body: Dict, scale: int) -> Dict:
-    out = {}
-    for k in base:
-        out[k] = {f: base[k][f] + scale * body[k][f] for f in base[k]}
-    return out
 
 
 def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
@@ -276,13 +261,6 @@ def cost_pass(cfg: ModelConfig, shape: ShapeConfig,
 # ---------------------------------------------------------------------------
 # Collectives counted from the step on DTensors
 # ---------------------------------------------------------------------------
-def counts_on_dtensors(cfg: ModelConfig) -> bool:
-    """Whether the dry run counts this arch's collectives from the step on
-    DTensors: every layer attention (global or local) with a dense or MoE
-    FFN."""
-    return all(kind in ATTN_KINDS for kind in cfg.full_pattern)
-
-
 def _count_mode():
     """A ``CommDebugMode`` that also keeps, for each functional collective
     it sees, (kind, result bytes, group size)."""
@@ -373,52 +351,6 @@ def local_bytes(tree) -> int:
     return total
 
 
-def _shard_group(t, rules: Rules):
-    """(mesh dim names that shard ``t``, their size product)."""
-    from torch.distributed.tensor import DTensor, Shard
-    if not isinstance(t, DTensor):
-        return [], 1
-    names = list(rules.mesh.mesh_dim_names)
-    dims = [names[i] for i, p in enumerate(t.placements)
-            if isinstance(p, Shard)]
-    return dims, math.prod(rules.sizes[d] for d in dims)
-
-
-def analytic_collectives(params: Dict[str, torch.Tensor], kind: str,
-                         rules: Rules, settings: "S.TrainSettings") -> Dict:
-    """Per-device collective bytes and counts of one step, by the
-    reference's keys: the forward's all-gathers, merged for train with the
-    backward's all-gathers, gradient reduce-scatters and all-reduces
-    (see the module docstring).  A group of one moves nothing and is not
-    counted."""
-    def empty():
-        return {c: {"bytes": 0.0, "count": 0, "result_bytes": 0.0}
-                for c in COLLECTIVES}
-
-    def add(coll, op, res, g):
-        if g > 1:
-            coll[op]["bytes"] += wire_bytes(op, res, g)
-            coll[op]["count"] += 1
-            coll[op]["result_bytes"] += res
-
-    fwd, bwd = empty(), empty()
-    batch_dims = rules.logical.get("batch", ())
-    grad_dtype = torch.int8 if settings.compress is not None else None
-    for t in params.values():
-        dims, g = _shard_group(t, rules)
-        full = _bytes(t.numel(), t.dtype)
-        add(fwd, "all-gather", full, g)
-        if kind != "train":
-            continue
-        add(bwd, "all-gather", full, g)
-        local = t.to_local() if hasattr(t, "to_local") else t
-        grad = _bytes(local.numel(), grad_dtype or t.dtype)
-        add(bwd, "reduce-scatter", grad, g)
-        rest = math.prod(rules.sizes[a] for a in batch_dims if a not in dims)
-        add(bwd, "all-reduce", grad, rest)
-    return _merge_scaled(fwd, bwd, 1 if kind == "train" else 0)
-
-
 def _outputs(cfg: ModelConfig, shape: ShapeConfig, specs: Dict,
              rules: Rules) -> int:
     """Local bytes of the step's outputs: the updated state placed as its
@@ -464,17 +396,11 @@ def run_cell(arch: str, shape: ShapeConfig, multi_pod: bool,
             "decode": ("params", "batch", "cache", "pos")}[shape.kind]
     donated = {"train": ("params", "opt_state"), "prefill": (),
                "decode": ("cache",)}[shape.kind]
-    if counts_on_dtensors(cfg):
-        coll = dtensor_collectives(
-            cfg, shape, settings,
-            (tuple(mesh.shape), tuple(mesh.mesh_dim_names)), profile)
-        counted_by = "dtensor"
-    else:
-        coll = analytic_collectives(specs["params"], shape.kind, rules,
-                                    settings)
-        counted_by = "analytic"
+    coll = dtensor_collectives(
+        cfg, shape, settings,
+        (tuple(mesh.shape), tuple(mesh.mesh_dim_names)), profile)
     for entry in coll.values():
-        entry["counted_by"] = counted_by
+        entry["counted_by"] = "dtensor"
     trips = cfg.n_periods - 1 if cfg.n_periods > 1 else 0
 
     rec.update(

@@ -13,10 +13,11 @@ With ``TrainSettings.compress`` set, the gradients pass through int8
 Given ``rules``, each step runs under them (``use_rules``) on a model of
 DTensor parameters placed by them (``LM(..., rules=)``,
 ``convert.params_from_numpy(..., rules=)``): the port's counterpart of the
-JAX package's steps under ``use_rules`` and jit, for the archs whose
-layers are attention with a dense or MoE FFN (the expert leaves are cut on
-two mesh dims, "model" over the experts and "data" over d_model, and the
-expert-parallel MoE's all-to-alls are differentiated).  The batch may hold
+JAX package's steps under ``use_rules`` and jit, for every arch (the
+expert leaves are cut on two mesh dims, "model" over the experts and
+"data" over d_model, and the expert-parallel MoE's all-to-alls are
+differentiated; the mamba, mLSTM and sLSTM recurrences run on each rank's
+local shards).  The batch may hold
 plain tensors that every rank has whole; the model places them.  The
 gradients come back placed as their parameters, and AdamW updates each
 rank's shards.

@@ -19,13 +19,23 @@ The LM hands each layer views of the stacked cache, so returning a fresh
 tensor instead would leave the cache as it was.  A DTensor cache, cut on
 its sequence dim, is written on each rank's own shard (``write_rows``).
 
-The attention block and the dense FFN constrain their activations where
-the JAX package's do (q, k, v, the attention output, the FFN's hidden
-activation, the layer's output), so on DTensor parameters they run as the
-JAX package's blocks do under its rules; the MoE FFN takes DTensor
-activations too (``moe.moe_apply``: the expert-parallel branch under
-"default" and "sp", the single shard under "fsdp").  The recurrent kinds
-take plain tensors only.
+Every kind runs on DTensor parameters as the JAX package's blocks do
+under its rules.  The attention block and the dense FFN constrain their
+activations where the JAX package's do (q, k, v, the attention output,
+the FFN's hidden activation, the layer's output); the MoE FFN takes
+DTensor activations too (``moe.moe_apply``: the expert-parallel branch
+under "default" and "sp", the single shard under "fsdp").  The recurrent
+kinds project in and out on DTensors, with the weights at their use-time
+placements (``UP_W`` / ``DOWN_W``), and run their recurrence on each
+rank's local shards: the mamba scan on a block of the channels or of the
+batch (``ops.selective_scan_on_shards``, after mamba's ``xs`` is
+constrained to ("batch", None, "model") as in the JAX package), the mLSTM
+cell on a block of the batch (``ops.mlstm_on_shards``), the sLSTM time
+loop on a block of the batch with its gate inputs whole
+(``_slstm_on_shards``).  A sequence cut by "sp" is gathered before each
+of them.  Their zero states are placed as their cache specs
+(``_zeros``), and their caches are written on each rank's own shard
+(``_store``).
 """
 from __future__ import annotations
 
@@ -37,11 +47,11 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
-from ..launch.sharding import (constrain, from_local, is_dtensor,
-                               shard_offsets)
+from ..launch.sharding import (constrain, current_rules, from_local, frozen,
+                               is_dtensor, shard_offsets)
 from .config import ModelConfig
 from .layers import (DOWN_W, UP_W, PSpec, attention, dense, rms_norm,
-                     rotate, swiglu)
+                     rotate, struct, swiglu)
 from .moe import moe_apply, moe_specs
 
 SSM_CHUNK = 64      # mamba: tokens per associative-scan chunk (plain scan)
@@ -277,18 +287,15 @@ def mamba_apply(cfg: ModelConfig, p: Mapping[str, torch.Tensor], x,
     B, S, D = x.shape
     di = cfg.ssm_expand * D
     n = cfg.ssm_state
-    K = cfg.ssm_conv
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    xs, z = dense(h, p["w_in"]).chunk(2, dim=-1)               # (B,S,di)
+    xs, z = _halves(dense(h, p["w_in"], UP_W))                # (B,S,di)
+    xs = constrain(xs, ("batch", None, "model"))
 
     # Causal conv1d over time (kernel ssm_conv).
     cache = ctx.cache
-    if ctx.mode == "decode":
-        xin = torch.cat([cache["conv"], xs], dim=1)            # (B,K-1+S,di)
-    else:
-        xin = F.pad(xs, (0, 0, K - 1, 0))
-    new_conv = xin[:, xin.shape[1] - (K - 1):]
-    xc = sum(xin[:, i:i + S] * p["conv"][i] for i in range(K))
+    prev = cache["conv"] if ctx.mode == "decode" else None
+    conv = _conv_on_shards if is_dtensor(xs) else _causal_conv
+    xc, new_conv = conv(xs, p["conv"], prev)
     xc = F.silu(xc)
 
     bcdt = dense(xc, p["w_bcdt"])
@@ -300,23 +307,92 @@ def mamba_apply(cfg: ModelConfig, p: Mapping[str, torch.Tensor], x,
     if ctx.mode == "decode":
         h0 = cache["ssm"]
     else:
-        h0 = torch.zeros((B, di, n), dtype=torch.float32, device=x.device)
+        h0 = _zeros((B, di, n), ("batch", "model", None), x)
     u, dt, b_in, c_in = (t.float() for t in (xc, dt, b_in, c_in))
-    if ctx.plain:
-        y, h_last = _ssm_scan(u, dt, a, b_in, c_in, h0)
+    # The kernel writes the state straight into the cache (each thread
+    # reads its h0 before it writes it, so h0 may be that same tensor).
+    scan = _ssm_scan if ctx.plain else ops.selective_scan
+    out = None if ctx.plain or cache is None else cache["ssm"]
+    if is_dtensor(u):
+        y, h_last = ops.selective_scan_on_shards(scan, u, dt, a, b_in,
+                                                 c_in, h0, out=out)
     else:
-        # The kernel writes the state straight into the cache (each thread
-        # reads its h0 before it writes it, so h0 may be that same tensor).
-        y, h_last = ops.selective_scan(
-            u, dt, a, b_in, c_in, h0,
-            out=None if cache is None else cache["ssm"])
+        y, h_last = scan(u, dt, a, b_in, c_in, h0,
+                         **({} if out is None else {"out": out}))
     y = (y.to(x.dtype) + xc * p["d_skip"]) * F.silu(z)
-    out = dense(y, p["w_out"])
+    out = dense(y, p["w_out"], DOWN_W)
     if cache is not None and ctx.mode in ("decode", "prefill"):
-        cache["conv"].copy_(new_conv)
+        _store(cache["conv"], new_conv)
         if h_last is not cache["ssm"]:
-            cache["ssm"].copy_(h_last)
+            _store(cache["ssm"], h_last)
     return out, cache
+
+
+def _causal_conv(xs, w, prev):
+    """The causal depthwise conv over time: xs (B,S,di), w (K,di), prev
+    the last K-1 rows before xs (the decode's conv cache) or None for
+    zeros.  Returns (sum over i of xin[:, i:i+S] * w[i], the last K-1 rows
+    of xin), xin being prev then xs."""
+    K, S = w.shape[0], xs.shape[1]
+    xin = F.pad(xs, (0, 0, K - 1, 0)) if prev is None else \
+        torch.cat([prev, xs], dim=1)                         # (B,K-1+S,di)
+    return (sum(xin[:, i:i + S] * w[i] for i in range(K)),
+            xin[:, xin.shape[1] - (K - 1):])
+
+
+def _conv_on_shards(xs, w, prev):
+    """``_causal_conv`` on each rank's local shards of DTensors: per mesh
+    dim, a block of the batch (w whole; its gradient a pending sum) or of
+    the channels (w cut on di as xs is); xs whole on any other placement.
+    The results are placed as the block xs was computed on."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = xs.device_mesh
+    rows = []                   # per mesh dim: xs (and prev), w, w's grad
+    for q in xs.placements:
+        if q == Shard(0):
+            rows.append((q, Replicate(), Partial()))
+        elif q == Shard(2):
+            rows.append((q, Shard(1), Shard(1)))
+        else:
+            rows.append((Replicate(),) * 3)
+    xp, wp, wg = (list(r) for r in zip(*rows))
+    xc, new = _causal_conv(
+        xs.redistribute(mesh, xp).to_local(grad_placements=xp),
+        frozen(w).redistribute(mesh, wp).to_local(grad_placements=wg),
+        None if prev is None else prev.redistribute(mesh, xp).to_local())
+    B, S, di = xs.shape
+    return (from_local(xc, mesh, xp, xs.shape),
+            from_local(new, mesh, xp, (B, w.shape[0] - 1, di)))
+
+
+def _halves(t):
+    """``t.chunk(2, dim=-1)``.  A DTensor cut on its last dim is made whole
+    there first: each half would otherwise straddle the cut."""
+    if is_dtensor(t) and any(q.is_shard(t.ndim - 1) for q in t.placements):
+        from torch.distributed.tensor import Replicate
+        t = t.redistribute(t.device_mesh, [
+            Replicate() if q.is_shard(t.ndim - 1) else q
+            for q in t.placements])
+    return t.chunk(2, dim=-1)
+
+
+def _zeros(shape, axes, like):
+    """An fp32 zero state of ``shape`` beside the activations ``like``:
+    for DTensor activations, a DTensor placed by the active rules for
+    ``axes`` (the state's cache spec), holding only this rank's shard."""
+    rules = current_rules() if is_dtensor(like) else None
+    return struct(shape, torch.float32, rules, axes, device=like.device)
+
+
+def _store(dst, src) -> None:
+    """``dst.copy_(src)``, the cache write; a DTensor ``src`` is first
+    redistributed to ``dst``'s placements, and each rank writes its own
+    shard."""
+    if not is_dtensor(dst):
+        dst.copy_(src)
+        return
+    dst.to_local().copy_(
+        src.redistribute(dst.device_mesh, dst.placements).to_local())
 
 
 # ===========================================================================
@@ -357,7 +433,10 @@ def _mlstm_cell(q, k, v, i_gate, f_gate, c0, n0):
     tail is zero-padded, f included, so when S is above the chunk and not a
     multiple of it each padded row decays the returned state by 1e-8 (y is
     unaffected; ROADMAP Queue 3).  The kernel pads with f = 1, so
-    ``mlstm_apply`` applies that decay to the kernel's state itself.
+    ``mlstm_apply`` applies that decay to the kernel's state itself.  The
+    masked entries' decay is never exponentiated, so the gradient stays
+    finite where the JAX cell's is NaN (at full width, ROADMAP "Deliberate
+    divergences"); the values are the JAX cell's.
     """
     B, S, H, hd = q.shape
     c_len = min(MLSTM_CHUNK, S)
@@ -380,8 +459,12 @@ def _mlstm_cell(q, k, v, i_gate, f_gate, c0, n0):
         y_inter = torch.einsum("bshd,bhde->bshe", qb, c_state) * \
             torch.exp(cum)[..., None]
         # intra-chunk: masked scores with decay ratio exp(cum_t - cum_s)·i_s
+        # The masked (s > t) ratios are -inf before the exp, where the JAX
+        # cell takes where(mask, exp(ratio), 0): the same values, but a
+        # masked ratio above fp32's exp range there is inf, and the
+        # backward's 0 · inf makes the gradient NaN.
         ratio = cum[:, :, None, :] - cum[:, None, :, :]      # (B,t,s,H)
-        w = torch.where(mask, torch.exp(ratio), torch.zeros_like(ratio))
+        w = torch.exp(ratio.masked_fill(~mask, -math.inf))
         sc = torch.einsum("bshd,bthd->bsth", qb, kb)
         y_intra = torch.einsum("bsth,bthd->bshd", sc * w * ib[:, None], vb)
         # state: C = A·C + Σ_s exp(cum_c - cum_s)·i_s k_s v_sᵀ
@@ -403,7 +486,7 @@ def mlstm_apply(cfg: ModelConfig, p: Mapping[str, torch.Tensor], x,
     di = int(cfg.mlstm_proj_factor * D)
     hd = di // H
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    up, z = dense(h, p["w_up"]).chunk(2, dim=-1)
+    up, z = _halves(dense(h, p["w_up"], UP_W))
     q = dense(up, p["wq"]).reshape(B, S, H, hd)
     k = dense(up, p["wk"]).reshape(B, S, H, hd) / math.sqrt(hd)
     v = dense(up, p["wv"]).reshape(B, S, H, hd)
@@ -414,35 +497,37 @@ def mlstm_apply(cfg: ModelConfig, p: Mapping[str, torch.Tensor], x,
     if ctx.mode == "decode":
         c0, n0 = cache["C"], cache["n"]
     else:
-        c0 = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device)
-        n0 = torch.zeros((B, H, hd), dtype=torch.float32, device=x.device)
+        c0 = _zeros((B, H, hd, hd), ("batch", None, None, None), x)
+        n0 = _zeros((B, H, hd), ("batch", None, None), x)
     q, k, v, i_gate, f_gate = (t.float() for t in (q, k, v, i_gate, f_gate))
-    if ctx.plain:
-        y, c_last, n_last = _mlstm_cell(q, k, v, i_gate, f_gate, c0, n0)
+    # The kernel writes C and n straight into the cache (each block reads
+    # its slab of c0 and n0 before it writes it, so the inputs may be
+    # those same tensors).
+    cell = _mlstm_cell if ctx.plain else ops.mlstm
+    outs = {} if ctx.plain or cache is None else {"out": cache["C"],
+                                                  "n_out": cache["n"]}
+    if is_dtensor(q):
+        y, c_last, n_last = ops.mlstm_on_shards(cell, q, k, v, i_gate,
+                                                f_gate, c0, n0, **outs)
     else:
-        # The kernel writes C and n straight into the cache (each block
-        # reads its slab of c0 and n0 before it writes it, so the inputs
-        # may be those same tensors).
-        y, c_last, n_last = ops.mlstm(
-            q, k, v, i_gate, f_gate, c0, n0=n0,
-            out=None if cache is None else cache["C"],
-            n_out=None if cache is None else cache["n"])
-        if S > MLSTM_CHUNK and S % MLSTM_CHUNK:
-            # The JAX cell pads the ragged tail with f = 0: each padded row
-            # decays C and n by log(1e-8), which the kernel (f = 1 padding,
-            # the identity) does not do.  Apply the same decay here.
-            pad = MLSTM_CHUNK - S % MLSTM_CHUNK
-            wipe = math.exp(pad * math.log(float(torch.tensor(1e-8))))
-            c_last.mul_(wipe)
-            n_last.mul_(wipe)
+        y, c_last, n_last = cell(q, k, v, i_gate, f_gate, c0, n0=n0, **outs)
+    if not ctx.plain and S > MLSTM_CHUNK and S % MLSTM_CHUNK:
+        # The JAX cell pads the ragged tail with f = 0: each padded row
+        # decays C and n by log(1e-8), which the kernel (f = 1 padding,
+        # the identity) does not do.  Apply the same decay here, to each
+        # rank's shard.
+        pad = MLSTM_CHUNK - S % MLSTM_CHUNK
+        wipe = math.exp(pad * math.log(float(torch.tensor(1e-8))))
+        for t in (c_last, n_last):
+            (t.to_local() if is_dtensor(t) else t).mul_(wipe)
     y = y.reshape(B, S, di).to(x.dtype)
     y = rms_norm(y, p["out_norm"], cfg.norm_eps) * F.silu(z)
-    out = dense(y, p["w_down"])
+    out = dense(y, p["w_down"], DOWN_W)
     if cache is not None and ctx.mode in ("decode", "prefill"):
         if c_last is not cache["C"]:
-            cache["C"].copy_(c_last)
+            _store(cache["C"], c_last)
         if n_last is not cache["n"]:
-            cache["n"].copy_(n_last)
+            _store(cache["n"], n_last)
     return out, cache
 
 
@@ -473,19 +558,41 @@ def slstm_apply(cfg: ModelConfig, p: Mapping[str, torch.Tensor], x,
     TPU kernel).  Copied exactly, quirks included: the recurrent term is
     reshaped from (B,H,4·hd) to (B,4D) before the gate split, so gates mix
     heads; the FFN's gelu is the tanh approximation (``jax.nn.gelu``'s
-    default); the block returns ``out + f - x`` and the LM adds x back."""
+    default); the block returns ``out + f - x`` and the LM adds x back.
+    On DTensors the time loop runs on each rank's batch shard of the gate
+    inputs, whole on 4D (``_slstm_on_shards``)."""
     B, S, D = x.shape
-    H = cfg.n_heads
-    hd = D // H
     xin = rms_norm(x, p["ln"], cfg.norm_eps)
-    gx = dense(xin, p["w_gates"]).float()                      # (B,S,4D)
+    gx = dense(xin, p["w_gates"], UP_W).float()                # (B,S,4D)
     cache = ctx.cache
+    state0 = None
     if ctx.mode == "decode" and cache is not None:
-        c, n, hprev, m = (cache[k].float() for k in ("c", "n", "h", "m"))
-    else:
+        state0 = tuple(cache[k] for k in ("c", "n", "h", "m"))
+    loop = _slstm_on_shards if is_dtensor(gx) else _slstm_loop
+    y, state = loop(gx, state0, p["r_gates"].float(), cfg.n_heads)
+    out = x + y.to(x.dtype)
+    # feed-forward sub-block
+    f = rms_norm(out, p["ln_ff"], cfg.norm_eps)
+    f = dense(F.gelu(dense(f, p["w_ff1"], UP_W), approximate="tanh"),
+              p["w_ff2"], DOWN_W)
+    if cache is not None and ctx.mode in ("decode", "prefill"):
+        for name, t in zip(("c", "n", "h", "m"), state):
+            _store(cache[name], t)
+    return out + f - x, cache  # block returns delta (residual added by LM)
+
+
+def _slstm_loop(gx, state0, r, H: int):
+    """The sLSTM time loop on plain tensors: gx (B,S,4D) fp32, state0 the
+    (c, n, h, m) of (B, D) or None for zeros, r (H, hd, 4·hd).  Returns
+    (y (B,S,D) fp32, the final (c, n, h, m))."""
+    B, S, D4 = gx.shape
+    D = D4 // 4
+    hd = D // H
+    if state0 is None:
         c, n, hprev, m = (torch.zeros((B, D), dtype=torch.float32,
-                                      device=x.device) for _ in range(4))
-    r = p["r_gates"].float()
+                                      device=gx.device) for _ in range(4))
+    else:
+        c, n, hprev, m = (t.float() for t in state0)
     hs = []
     for t in range(S):
         rec = torch.einsum("bhd,hde->bhe", hprev.reshape(B, H, hd),
@@ -499,15 +606,30 @@ def slstm_apply(cfg: ModelConfig, p: Mapping[str, torch.Tensor], x,
         hprev = torch.sigmoid(ot) * c / torch.clamp_min(n, 1.0)
         m = m_new
         hs.append(hprev)
-    y = torch.stack(hs, dim=1).to(x.dtype)                    # (B,S,D)
-    out = x + y
-    # feed-forward sub-block
-    f = rms_norm(out, p["ln_ff"], cfg.norm_eps)
-    f = dense(F.gelu(dense(f, p["w_ff1"]), approximate="tanh"), p["w_ff2"])
-    if cache is not None and ctx.mode in ("decode", "prefill"):
-        for name, t in zip(("c", "n", "h", "m"), (c, n, hprev, m)):
-            cache[name].copy_(t)
-    return out + f - x, cache  # block returns delta (residual added by LM)
+    return torch.stack(hs, dim=1), (c, n, hprev, m)
+
+
+def _slstm_on_shards(gx, state0, r, H: int):
+    """``_slstm_loop`` on DTensors, run on each rank's local tensors: per
+    mesh dim, the block of the batch that gx holds, else the whole batch;
+    gx whole on 4D (the gate split crosses any cut there), r whole.  The
+    loop issues no collective and runs no DTensor op per token.  Returns
+    y and the final state as DTensors placed as that batch block; r's
+    gradient is a pending sum over the mesh dims that cut the batch."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = gx.device_mesh
+    rows = [q if q == Shard(0) else Replicate() for q in gx.placements]
+    rgrad = [Partial() if q == Shard(0) else q for q in rows]
+    B, S, D4 = gx.shape
+    gxl = gx.redistribute(mesh, rows).to_local(grad_placements=rows)
+    rl = frozen(r).redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=rgrad)
+    if state0 is not None:
+        state0 = tuple(t.redistribute(mesh, rows).to_local()
+                       for t in state0)
+    y, state = _slstm_loop(gxl, state0, rl, H)
+    return (from_local(y, mesh, rows, (B, S, D4 // 4)),
+            tuple(from_local(t, mesh, rows, (B, D4 // 4)) for t in state))
 
 
 # ===========================================================================

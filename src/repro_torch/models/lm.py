@@ -24,9 +24,11 @@ port's counterpart of the JAX package's parameters under its
 ``NamedSharding``s); the same entry points then run as the JAX package's
 steps do under ``use_rules``: the batch, positions and labels join the
 mesh (``sharding.place``), the activations are constrained where the JAX
-package's are, and the prefill's cache is placed by the cache specs.  An
-attention-and-MoE decoder runs so too: each MoE layer's aux loss is a
-replicated DTensor scalar, summed over the layers into the loss.
+package's are, and the prefill's cache is placed by the cache specs (the
+recurrent states, fp32, too).  Every layer kind runs so: attention, dense
+and MoE FFNs (each MoE layer's aux loss is a replicated DTensor scalar,
+summed over the layers into the loss), mamba, mLSTM and sLSTM, under any
+``remat``.
 """
 from __future__ import annotations
 

@@ -71,12 +71,19 @@ def adamw_update(grads: Mapping[str, torch.Tensor], state,
     m_all: Dict[str, torch.Tensor] = state["m"]
     v_all: Dict[str, torch.Tensor] = state["v"]
     for name, p in params.items():
+        # The reference's expressions, evaluated in place where a result
+        # may overwrite an operand (each element takes the same operations
+        # in the same order): an fp32 moment is updated where it lies, and
+        # at most three leaf-sized temporaries live at once, so a large
+        # leaf's update fits beside the state on the card.
         g = grads[name].float() * clip
-        m32 = m_all[name].float() * b1 + (1 - b1) * g
-        v32 = v_all[name].float() * b2 + (1 - b2) * torch.square(g)
-        step = (m32 / c1) / (torch.sqrt(v32 / c2) + cfg.eps)
-        step = step + cfg.weight_decay * p.float()
-        p.copy_(p.float() - lr * step)
+        m32 = m_all[name].float().mul_(b1).add_((1 - b1) * g)
+        v32 = v_all[name].float().mul_(b2).add_((1 - b2) * torch.square(g))
+        del g
+        step = (m32 / c1).div_(torch.sqrt(v32 / c2).add_(cfg.eps))
+        step.add_(cfg.weight_decay * p.float())
+        p.copy_(p.float() - step.mul_(lr))
+        del step
         m_all[name].copy_(m32)
         v_all[name].copy_(v32)
     state["count"] = count

@@ -129,6 +129,32 @@ def test_wave_launches_count_every_attention_kind():
         "mlstm_scan": 0, "mamba_scan": 14 * new}
 
 
+def test_phase_11e_launches_every_scan_once_a_layer_a_pass():
+    """Phase 11e's DTensor runs, per profile: a prefill and 4 decode steps
+    of Jamba at 8 layers (7 mamba, 1 attention) and of xLSTM whole (10
+    mLSTM, 2 sLSTM, which has no kernel)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    steps = chip_smoke.SHARDED_DECODE_STEPS
+    jamba = dataclasses.replace(get_config("jamba-v0.1-52b"),
+                                n_layers=chip_smoke.JAMBA_FP32_LAYERS)
+    assert (steps, chip_smoke.JAMBA_FP32_LAYERS) == (4, 8)
+    assert chip_smoke.wave_launches(jamba, steps) == {
+        "flash_attention": 1, "flash_decode": 4, "mlstm_scan": 0,
+        "mamba_scan": 7 * 5}
+    assert chip_smoke.wave_launches(get_config("xlstm-125m"), steps) == {
+        "flash_attention": 0, "flash_decode": 0, "mlstm_scan": 10 * 5,
+        "mamba_scan": 0}
+    train = dataclasses.replace(
+        get_config("jamba-v0.1-52b"),
+        n_layers=chip_smoke.JAMBA_SHARDED_TRAIN_LAYERS)
+    assert train.full_pattern == ("mamba", "mamba")
+    assert [train.is_moe_layer(i) for i in range(2)] == [False, True]
+    assert chip_smoke.spec_elements(train) / 1e9 == pytest.approx(3.74,
+                                                                abs=0.01)
+
+
 def test_wave_launches_of_the_stub_modes_and_qwen3_moe():
     """Phases 18 and 20: qwen2-vl cut to 32 layers and musicgen whole, one
     attention layer each; qwen3-moe's 94 layers would give the same

@@ -18,8 +18,11 @@
   counted by hand.
 * ``run_cell``'s record has the reference's keys; the reference's
   ``benchmarks.roofline`` reads the port's records.
-* The analytic collective term: zero on one device, and on a (2, 2)
-  layout under "fsdp" the sum over the leaves.
+* The collectives counted from the step on DTensors: none on one device;
+  on a (2, 2) layout each kind's count and bytes pinned for smoke llama,
+  kimi-k2, Jamba and xLSTM under every profile, and the tensor-parallel
+  all-reduces, all-to-alls and sequence gathers that the recurrent and
+  MoE layers issue counted by hand.
 * The layout mesh of 512 ranks builds over one rank, without the fake
   process group of ``torch.testing``.
 
@@ -30,7 +33,6 @@ JAX backend of this process and its subprocesses keep their own flags.
 import ast
 import dataclasses
 import json
-import math
 import os
 import subprocess
 import sys
@@ -66,7 +68,6 @@ from repro_torch.launch import sharding as sh  # noqa: E402
 from repro_torch.models import LM, smoke  # noqa: E402
 from repro_torch.models.config import (ALL_SHAPES, DECODE_32K,  # noqa: E402
                                        PREFILL_32K, TRAIN_4K, ShapeConfig)
-from repro_torch.optim import CompressionConfig  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = sorted(jall_configs())
@@ -442,58 +443,14 @@ def test_main_reports_a_failing_cell(tmp_path, capsys):
     assert "error" in rec
 
 
-def sum_collectives(cfg, jrules, kind, grad_bytes):
-    """All-gather and reduce-scatter bytes of the analytic model, summed
-    over the leaves from the reference's specs: g = the product of the
-    mesh axes that shard a leaf; an all-gather of the leaf's bf16 bytes
-    b moves b·(g-1)/g, once in the forward and once in the backward; a
-    reduce-scatter of the local gradient's bytes moves them times (g-1)."""
-    ag = rs = 0.0
-    for spec in steps.named_param_specs(cfg).values():
-        entries = jrules.spec(spec.axes, spec.shape)
-        g = math.prod(jrules.sizes[a] for e in entries
-                      for a in entry_axes(e))
-        if g == 1:
-            continue
-        numel = math.prod(spec.shape)
-        ag += (2 if kind == "train" else 1) * 2 * numel * (g - 1) / g
-        if kind == "train":
-            rs += grad_bytes * numel / g * (g - 1)
-    return ag, rs
-
-
-@pytest.mark.parametrize("compress", [False, True])
-def test_collectives_on_a_2x2_layout_under_fsdp(layout, compress):
-    cfg = get_config("llama3.2-1b")
-    mesh, jmesh, amesh = layout("2x2")
-    tset = steps.TrainSettings(
-        compress=CompressionConfig() if compress else None)
-    rules = sh.make_rules(mesh, "fsdp")
-    params = steps.model_structs(cfg, rules)
-    coll = dryrun.analytic_collectives(params, "train", rules, tset)
-    ag, rs = sum_collectives(cfg, jsh.make_rules(jmesh, "fsdp"), "train",
-                             1 if compress else 2)
-    assert coll["all-gather"]["bytes"] == pytest.approx(ag, rel=1e-12)
-    assert coll["reduce-scatter"]["bytes"] == pytest.approx(rs, rel=1e-12)
-    # The replicated leaves (norm weights) all-reduce over the four ranks.
-    n_repl = sum(not any(jsh.make_rules(jmesh, "fsdp").spec(s.axes, s.shape))
-                 for s in steps.named_param_specs(cfg).values())
-    assert coll["all-reduce"]["count"] == n_repl > 0
-    assert coll["all-to-all"]["bytes"] == coll["collective-permute"][
-        "bytes"] == 0
-    infer = dryrun.analytic_collectives(params, "prefill", rules, tset)
-    assert infer["all-gather"]["bytes"] == pytest.approx(ag / 2, rel=1e-12)
-    assert infer["reduce-scatter"]["count"] == infer["all-reduce"][
-        "count"] == 0
-
-
-def test_collectives_are_zero_on_one_device(layout):
-    mesh = tmesh.layout_mesh((1, 1), ("data", "model"))
-    rules = sh.make_rules(mesh, "default")
-    cfg = get_config("llama3.2-1b")
-    coll = dryrun.analytic_collectives(steps.model_structs(cfg, rules),
-                                       "train", rules,
-                                       steps.TrainSettings())
+def test_collectives_are_zero_on_one_device():
+    """On a (1, 1) layout every collective of a step is over a group of
+    one: it moves nothing and none is counted."""
+    cfg = smoke(get_config("llama3.2-1b"))
+    coll = dryrun.dtensor_collectives(cfg, smoke_cell("train"),
+                                      steps.TrainSettings(),
+                                      ((1, 1), ("data", "model")))
+    assert not dist.is_initialized()
     assert all(v["bytes"] == 0 and v["count"] == 0 for v in coll.values())
 
 
@@ -652,10 +609,10 @@ def test_dtensor_collectives_of_smoke_llama_are_pinned(profile, kind):
 @pytest.mark.parametrize("kind", list(SMOKE_CELLS))
 def test_tensor_parallel_activation_all_reduces_are_counted(kind):
     """Under "default" each step all-reduces activations (B/2 x S x
-    d_model in bf16 on this layout; one token a row in decode), which the
-    analytic count has no term for; under "fsdp" no all-reduce is of an
-    activation: only the replicated norm weights' gradients (d_model in
-    bf16) and fp32 scalars (the loss's sums, the gradient norm)."""
+    d_model in bf16 on this layout; one token a row in decode); under
+    "fsdp" no all-reduce is of an activation: only the replicated norm
+    weights' gradients (d_model in bf16) and fp32 scalars (the loss's
+    sums, the gradient norm)."""
     cfg = smoke(get_config("llama3.2-1b"))
     B, S = SMOKE_CELLS[kind]
     rows = 1 if kind == "decode" else S
@@ -670,23 +627,14 @@ def test_tensor_parallel_activation_all_reduces_are_counted(kind):
     assert set(reduced["fsdp"]) <= {4, 2 * cfg.d_model}
     if kind != "train":
         assert not reduced["fsdp"]
-    # The analytic count's all-reduces are the norm weights' gradients
-    # alone, in train only.
-    mesh = tmesh.layout_mesh(*LAYOUT_2X2)
-    rules = sh.make_rules(mesh)
-    analytic = dryrun.analytic_collectives(
-        steps.model_structs(cfg, rules), kind, rules, steps.TrainSettings())
-    assert analytic["all-reduce"]["result_bytes"] == \
-        analytic["all-reduce"]["count"] * 2 * cfg.d_model
-    assert (analytic["all-reduce"]["count"] > 0) == (kind == "train")
 
 
 def test_records_say_which_count_they_carry():
-    """llama3.2-1b (attention and dense FFNs) carries the count of its
-    DTensor step on the (16, 16) layout; xlstm-125m (mLSTM and sLSTM
-    layers, which the DTensor forward does not run) the analytic one,
-    unchanged.  The cost pass is given, so only the counts run; no
-    process group is left."""
+    """llama3.2-1b (attention and dense FFNs) and xlstm-125m (mLSTM and
+    sLSTM layers) both carry the count of their DTensor step on the
+    (16, 16) layout, with the tensor-parallel all-reduces among it.  The
+    cost pass is given, so only the counts run; no process group is
+    left."""
     settings = steps.TrainSettings()
     costs = {(a, "decode_32k"): {"flops": 1, "flops_by_op": {}, "bytes": 1,
                                  "temp_bytes": 1, "seconds": 0.0}
@@ -694,24 +642,12 @@ def test_records_say_which_count_they_carry():
     recs = {a: dryrun.run_cell(a, DECODE_32K, False, settings, costs=costs)
             for a in ("llama3.2-1b", "xlstm-125m")}
     assert not dist.is_initialized()
-    assert dryrun.counts_on_dtensors(get_config("llama3.2-1b"))
-    assert not dryrun.counts_on_dtensors(get_config("xlstm-125m"))
-    for arch, by in (("llama3.2-1b", "dtensor"), ("xlstm-125m",
-                                                   "analytic")):
-        coll = recs[arch]["collectives"]
-        assert {v["counted_by"] for v in coll.values()} == {by}, arch
-        assert recs[arch]["collective_bytes_per_device"] == sum(
+    for arch, rec in recs.items():
+        coll = rec["collectives"]
+        assert {v["counted_by"] for v in coll.values()} == {"dtensor"}, arch
+        assert rec["collective_bytes_per_device"] == sum(
             v["bytes"] for v in coll.values())
-    mesh = tmesh.make_layout_mesh()
-    rules = sh.make_rules(mesh)
-    want = dryrun.analytic_collectives(
-        steps.model_structs(get_config("xlstm-125m"), rules), "decode",
-        rules, settings)
-    got = {k: {f: x for f, x in v.items() if f != "counted_by"}
-           for k, v in recs["xlstm-125m"]["collectives"].items()}
-    assert got == want
-    llama = recs["llama3.2-1b"]["collectives"]
-    assert llama["all-reduce"]["count"] > 0
+        assert coll["all-reduce"]["count"] > 0, arch
 
 
 # smoke(kimi-k2-1t-a32b) (2 layers, each attention and an MoE FFN of 8
@@ -822,11 +758,11 @@ def test_moe_all_to_alls_are_counted_per_layer(profile):
 
 
 def test_moe_records_carry_the_dtensor_count():
-    """qwen3-moe-235b-a22b and kimi-k2-1t-a32b (attention and MoE FFNs)
-    carry the count of their DTensor step on the (16, 16) layout, with 2
-    all-to-alls a layer in decode; jamba-v0.1-52b (mamba layers, which the
-    DTensor forward does not run) the analytic one, with none.  The cost
-    pass is given, so only the counts run; no process group is left."""
+    """qwen3-moe-235b-a22b, kimi-k2-1t-a32b (attention and MoE FFNs) and
+    jamba-v0.1-52b (mamba and attention, MoE FFNs on odd layers) carry
+    the count of their DTensor step on the (16, 16) layout, with 2
+    all-to-alls a MoE layer in decode.  The cost pass is given, so only
+    the counts run; no process group is left."""
     settings = steps.TrainSettings()
     archs = ("qwen3-moe-235b-a22b", "kimi-k2-1t-a32b", "jamba-v0.1-52b")
     costs = {(a, "decode_32k"): {"flops": 1, "flops_by_op": {}, "bytes": 1,
@@ -837,15 +773,181 @@ def test_moe_records_carry_the_dtensor_count():
         rec = dryrun.run_cell(arch, DECODE_32K, False, settings, costs=costs)
         assert not dist.is_initialized()
         coll = rec["collectives"]
-        by = "analytic" if arch.startswith("jamba") else "dtensor"
-        assert dryrun.counts_on_dtensors(cfg) == (by == "dtensor")
-        assert {v["counted_by"] for v in coll.values()} == {by}, arch
+        assert {v["counted_by"] for v in coll.values()} == {"dtensor"}, arch
         n_moe = sum(cfg.is_moe_layer(li) for li in range(cfg.n_layers))
-        want = 0 if by == "analytic" else 2 * n_moe
-        assert coll["all-to-all"]["count"] == want
-        assert want > 0 or by == "analytic"
+        assert n_moe > 0
+        assert coll["all-to-all"]["count"] == 2 * n_moe
         assert rec["collective_bytes_per_device"] == sum(
             v["bytes"] for v in coll.values())
+
+
+# smoke(jamba-v0.1-52b) (16 layers: 14 mamba and 2 attention, MoE FFNs of
+# 8 experts top-2 on the odd layers) and smoke(xlstm-125m) (10 mLSTM and 2
+# sLSTM layers) on the same cells and layout, by the same count.  The mamba
+# scans run on each rank's block of the channels ("default", "sp") or of
+# the batch ("fsdp"), the mLSTM cells and the sLSTM loop on its block of
+# the batch; they issue no collective of their own.  Beside each Jamba
+# cell, the reference's ``parse_collectives`` of the same cell
+# (``--reference-collectives jamba-v0.1-52b``), as kind: (count, result
+# bytes); the reference does not lower smoke xLSTM on this layout (its
+# sLSTM FFN's (64, 85) leaf does not divide over 2 "model" ranks).
+PINNED_RECURRENT = {
+    # ref: all-reduce (47, 1897800), all-gather (128, 3195008),
+    # all-to-all (43, 188416), collective-permute (29, 114752)
+    ("jamba-v0.1-52b", "default", "train"): {
+        "all-reduce": (322, 312140, 312140.0),
+        "all-gather": (457, 3921472, 1960736.0),
+        "reduce-scatter": (344, 1219184, 1219184.0),
+        "all-to-all": (32, 65536, 32768.0)},
+    # ref: all-reduce (20, 62208), all-gather (58, 1450112),
+    # all-to-all (9, 36864), collective-permute (15, 57408)
+    ("jamba-v0.1-52b", "default", "prefill"): {
+        "all-reduce": (69, 66560, 66560.0),
+        "all-gather": (174, 1870336, 935168.0),
+        "reduce-scatter": (46, 94208, 94208.0),
+        "all-to-all": (16, 32768, 16384.0)},
+    # ref: all-reduce (31, 8416), all-gather (63, 1423120),
+    # all-to-all (9, 33280), collective-permute (15, 7176)
+    ("jamba-v0.1-52b", "default", "decode"): {
+        "all-reduce": (73, 10368, 10368.0),
+        "all-gather": (176, 1723456, 861728.0),
+        "reduce-scatter": (46, 11776, 11776.0),
+        "all-to-all": (16, 32768, 16384.0)},
+    # ref: all-reduce (21, 1823544), all-gather (113, 2475136),
+    # all-to-all (33, 108544)
+    ("jamba-v0.1-52b", "fsdp", "train"): {
+        "all-reduce": (240, 338200, 338200.0),
+        "all-gather": (398, 8429664, 4214832.0),
+        "reduce-scatter": (126, 970752, 970752.0)},
+    # ref: all-reduce (8, 164864), all-gather (52, 1269888),
+    # all-to-all (9, 26624)
+    ("jamba-v0.1-52b", "fsdp", "prefill"): {
+        "all-gather": (188, 4203264, 2101632.0),
+        "reduce-scatter": (2, 3072, 3072.0)},
+    # ref: all-reduce (8, 32896), all-gather (52, 1262608),
+    # all-to-all (9, 3328)
+    ("jamba-v0.1-52b", "fsdp", "decode"): {
+        "all-gather": (188, 4160256, 2080128.0),
+        "reduce-scatter": (2, 3072, 3072.0)},
+    # ref: all-reduce (45, 2093640), all-gather (151, 3489920),
+    # all-to-all (87, 227840), collective-permute (29, 114752)
+    ("jamba-v0.1-52b", "sp", "train"): {
+        "all-reduce": (259, 183116, 183116.0),
+        "all-gather": (444, 3709024, 1854512.0),
+        "reduce-scatter": (263, 961680, 961680.0),
+        "all-to-all": (32, 65536, 32768.0)},
+    # ref: all-reduce (22, 62728), all-gather (68, 1499264),
+    # all-to-all (21, 53376), collective-permute (16, 57920)
+    ("jamba-v0.1-52b", "sp", "prefill"): {
+        "all-reduce": (45, 17408, 17408.0),
+        "all-gather": (180, 1697824, 848912.0),
+        "reduce-scatter": (40, 58368, 58368.0),
+        "all-to-all": (16, 32768, 16384.0)},
+    # ref: all-reduce (31, 8416), all-gather (63, 1423120),
+    # all-to-all (9, 33280), collective-permute (15, 7176)
+    ("jamba-v0.1-52b", "sp", "decode"): {
+        "all-reduce": (73, 10368, 10368.0),
+        "all-gather": (176, 1723456, 861728.0),
+        "reduce-scatter": (46, 11776, 11776.0),
+        "all-to-all": (16, 32768, 16384.0)},
+    ("xlstm-125m", "default", "train"): {
+        "all-reduce": (174, 1653068, 1653068.0),
+        "all-gather": (189, 1299392, 649696.0),
+        "reduce-scatter": (106, 303024, 303024.0)},
+    ("xlstm-125m", "default", "prefill"): {
+        "all-reduce": (43, 272384, 272384.0),
+        "all-gather": (60, 485888, 242944.0),
+        "reduce-scatter": (20, 1280, 1280.0)},
+    ("xlstm-125m", "default", "decode"): {
+        "all-reduce": (43, 34048, 34048.0),
+        "all-gather": (68, 385152, 192576.0),
+        "reduce-scatter": (20, 160, 160.0)},
+    ("xlstm-125m", "fsdp", "train"): {
+        "all-reduce": (140, 2081560, 2081560.0),
+        "all-gather": (118, 1973856, 986928.0),
+        "reduce-scatter": (58, 573312, 573312.0)},
+    ("xlstm-125m", "fsdp", "prefill"): {
+        "all-gather": (56, 999936, 499968.0),
+        "reduce-scatter": (2, 3072, 3072.0)},
+    ("xlstm-125m", "fsdp", "decode"): {
+        "all-gather": (56, 999936, 499968.0),
+        "reduce-scatter": (2, 3072, 3072.0)},
+    ("xlstm-125m", "sp", "train"): {
+        "all-reduce": (150, 1537100, 1537100.0),
+        "all-gather": (203, 1224192, 612096.0),
+        "reduce-scatter": (108, 232816, 232816.0)},
+    ("xlstm-125m", "sp", "prefill"): {
+        "all-reduce": (31, 247808, 247808.0),
+        "all-gather": (74, 514560, 257280.0),
+        "reduce-scatter": (32, 13568, 13568.0)},
+    ("xlstm-125m", "sp", "decode"): {
+        "all-reduce": (43, 34048, 34048.0),
+        "all-gather": (68, 385152, 192576.0),
+        "reduce-scatter": (20, 160, 160.0)},
+}
+
+
+@pytest.mark.parametrize("arch,profile,kind", list(PINNED_RECURRENT))
+def test_dtensor_collectives_of_smoke_recurrent_archs_are_pinned(
+        arch, profile, kind):
+    """Each kind's count, result bytes and wire bytes a device, as the
+    DTensor step of smoke Jamba or xLSTM issues them on rank 0 of the
+    (2, 2) layout; the pass leaves no process group."""
+    cfg = smoke(get_config(arch))
+    got = dryrun.dtensor_collectives(cfg, smoke_cell(kind),
+                                     steps.TrainSettings(), LAYOUT_2X2,
+                                     profile)
+    assert not dist.is_initialized()
+    held = {k: (v["count"], int(v["result_bytes"]), v["bytes"])
+            for k, v in got.items() if v["count"]}
+    assert held == PINNED_RECURRENT[arch, profile, kind]
+
+
+@pytest.mark.parametrize("profile", PROFILES)
+def test_recurrent_collectives_are_counted_by_hand(profile):
+    """In the prefill, over the two "model" ranks: each mamba layer
+    all-reduces its scan's b and c (B/2 x S x N in fp32; the projection
+    contracts over the channels that "model" cuts), each mLSTM layer its
+    q, k and v (B/2 x S x d_inner in fp32); each MoE layer of Jamba
+    exchanges 2 capacity buffers (4 in train); under "sp" xLSTM gathers
+    the sequence (B/2 x S x d_model in bf16) before each mLSTM layer's
+    projection in and each sLSTM layer's two (the gates, the FFN).  Under
+    "fsdp", which cuts no weight on "model", none of these."""
+    jamba, xlstm = (smoke(get_config(a))
+                    for a in ("jamba-v0.1-52b", "xlstm-125m"))
+    B, S = SMOKE_CELLS["prefill"]
+
+    seen = {}
+
+    def calls(cfg, kind):
+        if (cfg.name, kind) not in seen:
+            seen[cfg.name, kind] = dryrun.collective_calls(
+                cfg, smoke_cell(kind), steps.TrainSettings(), LAYOUT_2X2,
+                profile)
+        return seen[cfg.name, kind]
+
+    def count(cfg, kind, op, res=None):
+        return sum(1 for o, r, g in calls(cfg, kind)
+                   if o == op and res in (None, r) and g == 2)
+
+    def n(cfg, kind):
+        return sum(k == kind for k in cfg.full_pattern)
+
+    tp = profile != "fsdp"
+    di = int(xlstm.mlstm_proj_factor * xlstm.d_model)
+    assert count(jamba, "prefill", "all-reduce",
+                 B // 2 * S * jamba.ssm_state * 4) == \
+        2 * n(jamba, "mamba") * tp == 28 * tp
+    assert count(xlstm, "prefill", "all-reduce", B // 2 * S * di * 4) == \
+        3 * n(xlstm, "mlstm") * tp == 30 * tp
+    n_moe = sum(jamba.is_moe_layer(li) for li in range(jamba.n_layers))
+    for kind, per_layer in (("prefill", 2), ("train", 4)):
+        assert count(jamba, kind, "all-to-all") == \
+            per_layer * n_moe * tp == per_layer * 8 * tp, kind
+    gathers = count(xlstm, "prefill", "all-gather",
+                    B // 2 * S * xlstm.d_model * 2)
+    want = n(xlstm, "mlstm") + 2 * n(xlstm, "slstm")
+    assert gathers == (want if profile == "sp" else 0) and want == 14
 
 
 def reference_collectives(arch="llama3.2-1b"):

@@ -10,6 +10,13 @@
   groups, through the plain versions here; its output is its block of the
   whole attention's, for GQA groups that a rank's block fills, splits or
   straddles.
+* The scans' DTensor entries run on each rank's local shards:
+  ``ops.selective_scan_on_shards`` on a block of the channels (u, dt, a
+  and the state cut on di, b and c whole) or of the batch, and
+  ``ops.mlstm_on_shards`` on a block of the batch; each rank's y and final
+  state are its block of the whole scan's, through the kernel wrapper's
+  CPU branch and through the model's plain scan, and a DTensor cache
+  handed as ``out`` is the state returned, written on the rank's shard.
 
 Each case runs as rank r of a fake process group of two (the "fake"
 backend of ``torch.testing``: no other rank exists and no collective
@@ -22,8 +29,8 @@ import pytest
 torch = pytest.importorskip("torch")
 import torch.distributed as dist  # noqa: E402
 
-from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.models import layers  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.models import blocks, layers  # noqa: E402
 
 TOL = 2e-5                      # fp32 (tests/test_kernels.py:28)
 
@@ -113,3 +120,86 @@ def test_attention_runs_on_each_ranks_head_block(rank_of_two, rank, nq, nkv,
     assert tuple(got.shape) == (B, S, nq, hd)
     torch.testing.assert_close(got.to_local(), want[:, :, block], rtol=TOL,
                                atol=TOL)
+
+
+def _block(t, dim, rank, parts=2):
+    n = t.shape[dim] // parts
+    return t.narrow(dim, rank * n, n).contiguous()
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+@pytest.mark.parametrize("cut", ["channels", "batch"])
+@pytest.mark.parametrize("scan", ["wrapper", "plain"])
+def test_selective_scan_runs_on_each_ranks_block(rank_of_two, rank, cut,
+                                                 scan):
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = rank_of_two(rank)
+    B, S, di, N = 2, 12, 8, 4
+    u = randn(B, S, di, seed=1)
+    dt = torch.nn.functional.softplus(randn(B, S, di, seed=2))
+    a = -torch.exp(randn(di, N, seed=3))
+    b, c = randn(B, S, N, seed=4), randn(B, S, N, seed=5)
+    h0 = randn(B, di, N, seed=6)
+    want_y, want_h = ref.mamba_scan_ref(u, dt, a, b, c, h0)
+    R = Replicate()
+    if cut == "channels":     # u, dt, a and the state cut on di
+        pl = {"u": Shard(2), "a": Shard(0), "b": R, "h": Shard(1)}
+        local = {"u": _block(u, 2, rank), "dt": _block(dt, 2, rank),
+                 "a": _block(a, 0, rank), "b": b, "c": c,
+                 "h": _block(h0, 1, rank)}
+        want_y, want_h = _block(want_y, 2, rank), _block(want_h, 1, rank)
+    else:                     # every tensor but a cut on the batch
+        pl = {"u": Shard(0), "a": R, "b": Shard(0), "h": Shard(0)}
+        local = {"u": _block(u, 0, rank), "dt": _block(dt, 0, rank), "a": a,
+                 "b": _block(b, 0, rank), "c": _block(c, 0, rank),
+                 "h": _block(h0, 0, rank)}
+        want_y, want_h = _block(want_y, 0, rank), _block(want_h, 0, rank)
+
+    def d(name, key=None):
+        return dtensor(local[name], mesh, [R, pl[key or name]])
+
+    args = (d("u"), d("dt", "u"), d("a"), d("b"), d("c", "b"), d("h"))
+    if scan == "wrapper":
+        out = dtensor(torch.zeros_like(local["h"]), mesh, [R, pl["h"]])
+        y, h = ops.selective_scan_on_shards(ops.selective_scan, *args,
+                                            out=out)
+        assert h is out
+    else:
+        y, h = ops.selective_scan_on_shards(blocks._ssm_scan, *args)
+    assert tuple(y.shape) == (B, S, di) and tuple(h.shape) == (B, di, N)
+    assert tuple(y.placements) == (R, pl["u"])
+    assert tuple(h.placements) == (R, pl["h"])
+    torch.testing.assert_close(y.to_local(), want_y, rtol=TOL, atol=TOL)
+    torch.testing.assert_close(h.to_local(), want_h, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+@pytest.mark.parametrize("cut", ["batch", "none"])
+@pytest.mark.parametrize("cell", ["wrapper", "plain"])
+def test_mlstm_runs_on_each_ranks_batch_block(rank_of_two, rank, cut, cell):
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = rank_of_two(rank)
+    B, S, H, hd = 2, 12, 2, 8
+    q, k, v = (randn(B, S, H, hd, seed=s) for s in (1, 2, 3))
+    i_gate, f_gate = (torch.sigmoid(randn(B, S, H, seed=s)) for s in (4, 5))
+    c0, n0 = randn(B, H, hd, hd, seed=6), randn(B, H, hd, seed=7)
+    want = ref.mlstm_ref(q, k, v, i_gate, f_gate, c0, n0)
+    pl = [Replicate(), Shard(0) if cut == "batch" else Replicate()]
+    ts = (q, k, v, i_gate, f_gate, c0, n0)
+    if cut == "batch":
+        ts = tuple(_block(t, 0, rank) for t in ts)
+        want = tuple(_block(t, 0, rank) for t in want)
+    args = [dtensor(t, mesh, pl) for t in ts]
+    if cell == "wrapper":
+        out, n_out = (dtensor(torch.zeros_like(t), mesh, pl)
+                      for t in ts[5:])
+        y, c_last, n_last = ops.mlstm_on_shards(ops.mlstm, *args, out=out,
+                                                n_out=n_out)
+        assert c_last is out and n_last is n_out
+    else:
+        y, c_last, n_last = ops.mlstm_on_shards(blocks._mlstm_cell, *args)
+    for got, shape, w in zip((y, c_last, n_last),
+                             ((B, S, H, hd), (B, H, hd, hd), (B, H, hd)),
+                             want):
+        assert tuple(got.shape) == shape and list(got.placements) == pl
+        torch.testing.assert_close(got.to_local(), w, rtol=TOL, atol=TOL)

@@ -203,6 +203,9 @@ def widen_torch():
     from repro_torch.optim import adamw, compress, schedules
     for mod in (blocks, layers, moe, ref, adamw, compress, schedules):
         mod.torch = Torch64()
+    # The rope frequencies are cached per (hd, theta, device): an fp32
+    # table that an earlier fp32 run left there would stay fp32.
+    layers._rope_freqs_on.cache_clear()
 
 
 # ---------------------------------------------------------------------------

@@ -195,6 +195,42 @@ def test_mlstm_cell_matches_jax(S, chunk, monkeypatch):
         assert float(jnp.abs(jc).max()) < 1e-20 < float(jnp.abs(jc_seq).max())
 
 
+def test_mlstm_cell_gradient_is_finite_where_the_jax_cells_is_nan():
+    """Forget gates near 0 push a masked (future) entry's decay ratio
+    above fp32's exp range within one chunk: the JAX cell's
+    where(mask, exp(ratio), 0) holds inf there, and its gradient through
+    the gates is NaN (as in xlstm-125m's at full width, 2 x 512 tokens).
+    The port's cell never exponentiates a masked ratio (ROADMAP
+    "Deliberate divergences"): the same outputs, the same gradients of q,
+    k and v, and finite gradients of the gates."""
+    B, S, H, hd = 1, 16, 1, 4
+    jq, q = randn(0, (B, S, H, hd))
+    jk, k = randn(1, (B, S, H, hd))
+    jv, v = randn(2, (B, S, H, hd))
+    ji, i = (jax.nn.sigmoid(randn(3, (B, S, H))[0]),
+             torch.sigmoid(randn(3, (B, S, H))[1]))
+    f_np = np.full((B, S, H), 1e-12, np.float32)
+    jf, f = jnp.asarray(f_np), torch.from_numpy(f_np)
+    jc0, c0 = randn(5, (B, H, hd, hd), 0.3)
+    jn0, n0 = randn(6, (B, H, hd), 0.3)
+
+    def jloss(q, k, v, i, f):
+        y, c, n = jblocks._mlstm_cell(q, k, v, i, f, jc0, jn0)
+        return jnp.sum(y) + jnp.sum(c) + jnp.sum(n), (y, c, n)
+
+    jgrads, (jy, jc, jn) = jax.grad(jloss, argnums=range(5),
+                                    has_aux=True)(jq, jk, jv, ji, jf)
+    assert not np.isfinite(np.asarray(jgrads[4])).all()
+    ts = [t.clone().requires_grad_() for t in (q, k, v, i, f)]
+    y, c, n = blocks._mlstm_cell(*ts, c0, n0)
+    grads = torch.autograd.grad(y.sum() + c.sum() + n.sum(), ts)
+    for got, want in ((y, jy), (c, jc), (n, jn)):
+        close(got, want, rtol=1e-5, atol=1e-5)
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    for got, want in zip(grads[:3], jgrads[:3]):
+        close(got, want, rtol=1e-5, atol=1e-5)
+
+
 def test_ragged_prompt_above_the_chunk_wipes_the_state_on_both_paths(xlstm):
     """A 300-token prefill (above the 256-row chunk, not a multiple of it)
     through ``mlstm_apply``: the JAX cell pads the tail with f = 0, which
