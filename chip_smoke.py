@@ -69,7 +69,15 @@ Phases, each of which must pass (any failure exits non-zero):
      (``sharded_step_phase``): in fp32 one train step of
      ``steps.make_train_step(cfg, settings, rules)`` at step index 1 from
      ``init_model(seed 0, rules=)``, its loss and every updated parameter
-     and moment held to the plain-tensor step's; in bf16 a prefill of
+     and moment held to the plain-tensor step's; then one int8-compressed
+     train step (``TrainSettings(compress=CompressionConfig())``) from the
+     same start state, plain and on DTensors, the DTensor step's loss,
+     parameters and moments held to the plain compressed step's, its
+     codes and scales (``CompressRecorder``, one per leaf of the JAX
+     package's tree) to the plain step's bit for bit, every scale finite
+     and every gradient handed to AdamW placed as its parameter; each
+     train step's ms and peak memory printed (the uncompressed DTensor
+     step timed once more after the compressed one); in bf16 a prefill of
      4 x 256 and 4 decode steps through the kernel path
      (``make_prefill_step`` / ``make_decode_step`` under the rules), the
      logits held to the same weights' plain-tensor kernel run, with
@@ -1535,24 +1543,31 @@ class CompressRecorder:
     """While active, keeps references to what the train step's compression
     was given and made: the gradients handed to
     ``steps._compressed_allreduce`` and each leaf's codes and scale from
-    ``steps.compress_gradients``, on the card.  Nothing is copied during
-    the step; the gradients live on past it until the recorder is dropped
-    (through the AdamW update, which holds less than the backward)."""
+    ``steps.compress_gradients``, on the card; and names in ``misplaced``
+    each gradient handed to ``steps.adamw_update`` that is not placed as
+    its parameter (a DTensor's placements, or a plain tensor beside a
+    DTensor).  Nothing is copied during the step; the gradients live on
+    past it until the recorder is dropped (through the AdamW update, which
+    holds less than the backward)."""
 
     def __init__(self):
         from repro_torch.launch import steps
         self._steps, self.grads, self.codes = steps, None, {}
+        self.misplaced = None
 
     def __enter__(self):
         self._allreduce = self._steps._compressed_allreduce
         self._compress = self._steps.compress_gradients
+        self._adamw = self._steps.adamw_update
         self._steps._compressed_allreduce = self._allreduce_call
         self._steps.compress_gradients = self._compress_call
+        self._steps.adamw_update = self._adamw_call
         return self
 
     def __exit__(self, *exc):
         self._steps._compressed_allreduce = self._allreduce
         self._steps.compress_gradients = self._compress
+        self._steps.adamw_update = self._adamw
 
     def _allreduce_call(self, cfg, grads, ccfg, rules):
         self.grads = grads
@@ -1563,31 +1578,54 @@ class CompressRecorder:
         self.codes.update({k: (q[k], s[k]) for k in q})
         return q, s, pre
 
+    def _adamw_call(self, grads, opt_state, params, *args, **kwargs):
+        def placed(t):
+            return tuple(t.placements) if hasattr(t, "placements") else None
+        self.misplaced = [n for n, g in grads.items()
+                          if placed(g) != placed(params[n])]
+        return self._adamw(grads, opt_state, params, *args, **kwargs)
+
+
+def whole(t):
+    """A DTensor's global value (``full_tensor``); a plain tensor as it
+    is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def same_bits(a, b) -> bool:
+    """Whether two tensors of one dtype and shape hold the same bits."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32,
+            8: torch.int64}[a.element_size()]
+    return torch.equal(a.reshape(-1).view(ints), b.reshape(-1).view(ints))
+
 
 def compression_rows(cfg, grads, codes, ccfg):
     """One row per leaf of the JAX package's tree (``convert.jax_layout``:
     a leaf stacked over periods has one scale): whether the codes and scale
-    made on the card equal, bit for bit, the ones ``compress_gradients``
+    the step made equal, bit for bit, the ones ``compress_gradients``
     makes on the CPU from the same gradients copied to the host, and the
     leaf's largest dequantization error (``q.float() * scale`` against the
-    gradient, in float64) beside its scale."""
+    gradient, in float64) beside its scale.  DTensor gradients, codes and
+    scales are gathered whole first (``full_tensor``)."""
     import torch
 
     from repro_torch.convert import jax_layout
     from repro_torch.optim import compress_gradients
     rows = []
     for key, (stacked, names) in jax_layout(cfg, grads).items():
-        g = torch.stack([grads[n] for n in names]) if stacked \
-            else grads[names[0]]
-        q, s = codes[key]
+        g = torch.stack([whole(grads[n]) for n in names]) if stacked \
+            else whole(grads[names[0]])
+        q, s = (whole(t) for t in codes[key])
         hq, hs, _ = compress_gradients({key: g.cpu()}, ccfg)
         err = float((q.float() * s).double().sub_(g.double()).abs_().max())
         scale = float(s)
         rows.append({
             "leaf": key, "elements": g.numel(), "scale": scale,
             "codes_equal": bool(torch.equal(q.cpu(), hq[key])),
-            "scale_equal": bool(torch.equal(s.cpu().view(torch.int32),
-                                            hs[key].view(torch.int32))),
+            "scale_equal": same_bits(s.cpu(), hs[key]),
             "max_err": err, "err_over_scale": err / scale})
         del g
     return rows
@@ -1800,7 +1838,7 @@ def host_mesh_phase(torch, dev):
 
 
 def sharded_step_phase(torch, dev, cfg=None, *, serve_cfg=None,
-                       serve_dtype="bfloat16"):
+                       serve_dtype="bfloat16", compress=False):
     """Phase 11c: ``cfg`` (default llama3.2-1b at full width) on DTensor
     parameters over the (1, 1) mesh of ``make_host_mesh()`` (NCCL on the
     card, gloo on the CPU; a ``file://`` rendezvous), under each profile of
@@ -1811,10 +1849,20 @@ def sharded_step_phase(torch, dev, cfg=None, *, serve_cfg=None,
     leaves, three times over, would not fit the card beside a DTensor
     run's (phase 11d: a model and its optimizer fill most of the card),
     they wait on the host and come back one at a time to be compared.
-    Returns the numbers it prints and
+    With ``compress`` (phase 11c), an int8-compressed train step
+    (``CompressionConfig()``) follows each uncompressed one, plain and
+    under each profile, from the same start state; each DTensor step's
+    loss and leaves are held to the plain compressed step's, its codes and
+    scales (``CompressRecorder``) to the plain step's bit for bit, and
+    every gradient it hands AdamW must be placed as its parameter.  Every
+    train step is timed (host clock around a synchronized step) with its
+    peak memory on the card, and the uncompressed DTensor step is run
+    once more after the compressed one (timed only).  Returns the numbers
+    it prints and
     the kernel launches of the DTensor runs (counters set to 0 before the
     first, read after the last; the plain runs they are held to are not
     counted)."""
+    import contextlib
     import tempfile
 
     import torch.distributed as dist
@@ -1826,7 +1874,7 @@ def sharded_step_phase(torch, dev, cfg=None, *, serve_cfg=None,
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.sharding import PROFILES, make_rules
     from repro_torch.models import init_model
-    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim import AdamWConfig, CompressionConfig, adamw_init
 
     t_phase = time.perf_counter()
     cfg = cfg or get_config(ARCH)
@@ -1845,11 +1893,32 @@ def sharded_step_phase(torch, dev, cfg=None, *, serve_cfg=None,
     settings = steps.TrainSettings(remat="none", opt=AdamWConfig(
         lr=1e-3, weight_decay=0.01), warmup=2, stable=10**6, decay=1)
 
-    def train(rules):
-        model = init_model(cfg, 0, device=dev, rules=rules)
-        opt = adamw_init(dict(model.named_parameters()), settings.opt)
-        _, _, loss = steps.make_train_step(cfg, settings, rules)(
-            model, opt, batch, COMPRESS_STEP)
+    def train(rules, recorder=None):
+        """One train step from the start state, under deterministic
+        algorithms; compressed when a ``CompressRecorder`` records it.
+        Returns (loss, leaves, step ms, peak GB on the card)."""
+        torch.use_deterministic_algorithms(True)
+        try:
+            model = init_model(cfg, 0, device=dev, rules=rules)
+            opt = adamw_init(dict(model.named_parameters()), settings.opt)
+            step = steps.make_train_step(cfg, dataclasses.replace(
+                settings, compress=None if recorder is None else
+                CompressionConfig()), rules)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with recorder or contextlib.nullcontext():
+                _, _, loss = step(model, opt, batch, COMPRESS_STEP)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            torch.use_deterministic_algorithms(False)
+        peak = (torch.cuda.max_memory_allocated() / 1e9
+                if dev.type == "cuda" else None)
+        if recorder is not None:
+            recorder.grads = None
         leaves = {f"params/{n}": p.detach()
                   for n, p in model.named_parameters()}
         leaves.update({f"{k}/{n}": t for k in ("m", "v")
@@ -1857,7 +1926,7 @@ def sharded_step_phase(torch, dev, cfg=None, *, serve_cfg=None,
         if rules is None and 3 * sum(t.numel() * t.element_size()
                                      for t in leaves.values()) > card_bytes:
             leaves = {n: t.cpu() for n, t in leaves.items()}
-        return loss, leaves
+        return loss, leaves, ms, peak
 
     def local(t):
         return t.to_local() if hasattr(t, "to_local") else t
@@ -1892,16 +1961,57 @@ def sharded_step_phase(torch, dev, cfg=None, *, serve_cfg=None,
         check(err <= tol, f"[{tag}] {what}: {err} > {tol}")
         return {"exact": exact, "max_abs_err": err}
 
+    def train_held(what, loss, got, want_loss, want):
+        """A train step's loss and updated leaves against the plain
+        step's (``held``)."""
+        names = sorted(want)
+        check(sorted(got) == names, f"[{tag}] {what}: leaves")
+        return held(what, [local(loss).cpu()] + [local(got[n])
+                                                 for n in names],
+                    [torch.tensor(want_loss)] + [want[n] for n in names],
+                    TOL["float32"])
+
+    def codes_held(what, rec, want_codes):
+        """The recorded codes and scales, gathered whole, against the
+        plain compressed step's, bit for bit; a scale that is not finite
+        fails, and so does a gradient handed to AdamW placed otherwise
+        than its parameter."""
+        check(sorted(rec.codes) == sorted(want_codes),
+              f"[{tag}] {what}: leaves quantized {sorted(rec.codes)}")
+        equal = 0
+        for key, (q, s) in rec.codes.items():
+            q, s = whole(q), whole(s)
+            check(bool(torch.isfinite(s).all()),
+                  f"[{tag}] {what}: {key}'s scale {s} is not finite")
+            wq, ws = want_codes[key]
+            equal += bool(torch.equal(q, wq)) and same_bits(s, ws)
+            del q
+        check(equal == len(want_codes), f"[{tag}] {what}: codes or scales "
+              f"of {len(want_codes) - equal} of {len(want_codes)} leaves "
+              f"differ from the plain step's")
+        check(rec.misplaced == [], f"[{tag}] {what}: gradients handed to "
+              f"AdamW not placed as their parameters: {rec.misplaced}")
+        return {"leaves": len(want_codes), "equal": equal}
+
     out = {"arch": cfg.name, "train_layers": cfg.n_layers,
            "train_batch": [B, S], "serve_layers": serve_cfg.n_layers,
            "serve_dtype": serve_dtype, "profiles": {}}
-    torch.use_deterministic_algorithms(True)
-    try:
-        want_loss, want = train(None)
-    finally:
-        torch.use_deterministic_algorithms(False)
+    want_loss, want, ms, peak = train(None)
     want_loss = float(want_loss)
+    out["plain"] = {"step_ms": ms, "peak_gb": peak}
     release_cuda()
+    if compress:
+        rec = CompressRecorder()
+        want_closs, want_c, ms, peak = train(None, rec)
+        want_closs = float(want_closs)
+        want_codes = rec.codes
+        del rec
+        check(all(bool(torch.isfinite(s).all())
+                  for _, s in want_codes.values()),
+              f"[{tag}] plain compressed step: a scale is not finite")
+        out["plain"].update(compressed_step_ms=ms, compressed_peak_gb=peak,
+                            leaves=len(want_codes))
+        release_cuda()
     # The plain kernel run, and the greedy tokens both runs are fed.
     plain = init_model(serve_cfg, 0, dtype=serve_dt, device=dev)
     tokens = []
@@ -1927,22 +2037,41 @@ def sharded_step_phase(torch, dev, cfg=None, *, serve_cfg=None,
             for profile in PROFILES:
                 rules = make_rules(mesh, profile)
                 t0 = time.perf_counter()
-                torch.use_deterministic_algorithms(True)
-                try:
-                    loss, got = train(rules)
-                finally:
-                    torch.use_deterministic_algorithms(False)
-                row = {"train_s": time.perf_counter() - t0}
-                names = sorted(want)
-                check(sorted(got) == names, f"[{tag}] {profile}: leaves")
+                loss, got, ms, peak = train(rules)
+                row = {"train_s": time.perf_counter() - t0, "step_ms": ms,
+                       "peak_gb": peak}
                 row["loss"] = [float(local(loss)), want_loss]
-                row["train"] = held(
-                    f"{profile} train", [local(loss).cpu()] + [
-                        local(got[n]) for n in names],
-                    [torch.tensor(want_loss)] + [want[n] for n in names],
-                    TOL["float32"])
+                row["train"] = train_held(f"{profile} train", loss, got,
+                                          want_loss, want)
                 del got, loss
                 release_cuda()
+                if compress:
+                    rec = CompressRecorder()
+                    loss, got, ms, peak = train(rules, rec)
+                    row.update(compressed_step_ms=ms,
+                               compressed_peak_gb=peak)
+                    row["compressed_loss"] = [float(local(loss)),
+                                              want_closs]
+                    row["compressed_train"] = train_held(
+                        f"{profile} compressed train", loss, got,
+                        want_closs, want_c)
+                    row["codes"] = codes_held(f"{profile} compressed train",
+                                              rec, want_codes)
+                    del got, loss, rec
+                    release_cuda()
+                    # The uncompressed step again, timed only: the first
+                    # step of a profile also pays a warm-up.
+                    loss, got, ms, peak = train(rules)
+                    check(float(local(loss)) == want_loss,
+                          f"[{tag}] {profile}: the repeated step's loss")
+                    row["step_again_ms"] = ms
+                    del loss, got
+                    release_cuda()
+                    log(f"[{tag}] {profile}: train step ms "
+                        f"{row['step_ms']:.1f}, compressed "
+                        f"{row['compressed_step_ms']:.1f}, uncompressed "
+                        f"again {ms:.1f}; peak GB {row['peak_gb']}, "
+                        f"compressed {row['compressed_peak_gb']}")
                 t0 = time.perf_counter()
                 model = init_model(serve_cfg, 0, dtype=serve_dt, device=dev,
                                    rules=rules)
@@ -3124,7 +3253,7 @@ def run(torch) -> int:
     _, compress_launches = compress_phase(torch, dev, card)
     host_mesh_phase(torch, dev)
     # -- 11c. llama3.2-1b on DTensor parameters over the (1, 1) mesh --------
-    _, sharded_launches = sharded_step_phase(torch, dev)
+    _, sharded_launches = sharded_step_phase(torch, dev, compress=True)
     # -- 11d. qwen3-moe-235b-a22b on DTensor parameters, the same mesh -----
     _, moe_sharded_launches = moe_sharded_step_phase(torch, dev)
     # -- 11e. jamba-v0.1-52b and xlstm-125m on DTensor parameters ---------

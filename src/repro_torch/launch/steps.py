@@ -111,19 +111,45 @@ def _compressed_allreduce(cfg: mc.ModelConfig,
     Each int8 leaf passes through ``constrain`` to ("fsdp", None, ...), so
     a gradient held as a DTensor moves as int8 between the ranks; a plain
     tensor, or no active rules, passes unchanged.  This is the reference's
-    stateless form: error feedback is not carried in the step."""
+    stateless form: error feedback is not carried in the step.
+
+    On DTensors the scale is the whole leaf's: the max is reduced over the
+    mesh.  The constraint may cut a stacked leaf on its period dim, so the
+    dequantized leaf is redistributed back to the placements ``torch.stack``
+    gave the gradients (whole on the period dim) before it is split per
+    layer, and each row is then placed as its parameter's gradient was, so
+    AdamW's in-place updates meet shards of the parameter's layout.  Both
+    moves, and the constraint, are plain ``redistribute`` calls, which
+    NCCL and gloo take for int8 and fp32 alike (gloo has no all-to-all:
+    there DTensor moves a shard from one tensor dim to another by an
+    all-gather and a local chunk)."""
     out: Dict[str, torch.Tensor] = {}
     for key, (stacked, names) in jax_layout(cfg, grads).items():
         g = torch.stack([grads[n] for n in names]) if stacked \
             else grads[names[0]]
         q, s, _ = compress_gradients({key: g}, ccfg)
+        stack_layout = _layout(g)
         del g
         q = {k: constrain(t, ("fsdp",) + (None,) * (t.ndim - 1))
              for k, t in q.items()}
-        deq = decompress_gradients(q, s)[key]
-        out.update(zip(names, deq.unbind(0)) if stacked
-                   else [(names[0], deq)])
+        deq = _placed(decompress_gradients(q, s)[key], stack_layout)
+        rows = deq.unbind(0) if stacked else [deq]
+        out.update((n, _placed(r, _layout(grads[n])))
+                   for n, r in zip(names, rows))
     return {n: out[n] for n in grads}
+
+
+def _layout(t: torch.Tensor):
+    """(mesh, placements) of a DTensor; None for a plain tensor."""
+    return (t.device_mesh, tuple(t.placements)) if is_dtensor(t) else None
+
+
+def _placed(t: torch.Tensor, layout) -> torch.Tensor:
+    """``t`` redistributed to ``layout`` (``_layout`` of another tensor);
+    ``t`` itself when ``layout`` is None or ``t`` is placed so already."""
+    if layout is None or tuple(t.placements) == layout[1]:
+        return t
+    return t.redistribute(*layout)
 
 
 def make_prefill_step(cfg: mc.ModelConfig, max_len: int,

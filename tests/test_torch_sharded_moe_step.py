@@ -13,7 +13,11 @@ through
   * 4 decode steps against that cache: the logits;
   * 2 train steps on the train batch (lr 0 at step 0 as WSD gives it, then
     lr > 0): the losses and, after each step, every parameter and both
-    AdamW moments.
+    AdamW moments;
+  * for qwen3-moe, 2 int8-compressed train steps in float64
+    (tests/test_torch_sharded_step.py's ``compressed_steps``): the same,
+    and each leaf's codes and scales, the expert leaves' too, equal to the
+    plain quantizer's of the gathered gradient on every rank.
 
 Under "default" and "sp" the MoE is expert parallel (ep = 2): the train
 batch's 32 tokens and the prefill's 16 are cut over batch and expert (4
@@ -52,12 +56,15 @@ torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 
 from test_torch_sharded_step import (_jax_keyed, _params, _tree_items,  # noqa
-                                     _whole)
+                                     _whole, compressed_steps,
+                                     jax_compressed_steps, quantized_whole,
+                                     train_steps_held)
 
 ROOT = Path(__file__).resolve().parents[1]
 WORLD = 4
 TOL = 2e-5                      # fp32 (tests/test_kernels.py:28)
 ARCHS = ("qwen3-moe-235b-a22b", "kimi-k2-1t-a32b")
+COMPRESSED = ("qwen3-moe-235b-a22b",)   # also 2 compressed steps (float64)
 PROFILES = ("default", "fsdp", "sp")
 REMAT = {"qwen3-moe-235b-a22b": "none", "kimi-k2-1t-a32b": "dots"}
 TRAIN_B, SERVE_B, S, MAX_LEN = 4, 2, 8, 16
@@ -160,6 +167,9 @@ def jax_side(arch, inp_path, out_path):
             for k, v in _flatten({"params": p, "m": opt["m"],
                                   "v": opt["v"]}).items():
                 out[f"{profile}/train{i}/{k}"] = v
+    if arch in COMPRESSED:
+        jax_compressed_steps(cfg, tree, lambda pr: make_rules(mesh, pr),
+                             placed, batch, REMAT[arch], out)
     np.savez(out_path, **out)
 
 
@@ -220,6 +230,9 @@ def torch_rank(rank, init, arch, profile, inp_path, out_dir):
                     res[f"train{i}/{part}/{key}"] = arr
         placements = {n: str(tuple(p.placements)) for n, p in params.items()}
         res["placements"] = np.array(sorted(placements.items()))
+        if arch in COMPRESSED:
+            compressed_steps(cfg, _params(inp), rules, batch, REMAT[arch],
+                             res)
         res["seconds"] = np.array(time.perf_counter() - t0)
         np.savez(Path(out_dir) / f"{profile}-rank{rank}.npz", **res)
     finally:
@@ -361,6 +374,31 @@ def test_train_steps_match_the_jax_sharded_train_step(runs, arch, profile):
     for k in experts:
         assert not np.array_equal(want[k], want["0" + k[1:]]), k
         assert not np.array_equal(got[k], got["0" + k[1:]]), k
+
+
+COMPRESSED_CASES = [(a, p) for a in COMPRESSED for p in PROFILES]
+
+
+@pytest.mark.parametrize("arch,profile", COMPRESSED_CASES)
+def test_compressed_train_steps_match_the_jax_sharded_compressed_step(
+        runs, arch, profile):
+    """2 int8-compressed train steps in float64 through the expert-parallel
+    MoE ("default", "sp") and the single shard's ("fsdp"): the losses and,
+    after each step, every parameter and both moments, each leaf within
+    2e-5 of its largest value."""
+    want, got = outputs(runs, arch, profile, "ctrain")
+    train_steps_held(got, want, np.float64)
+
+
+@pytest.mark.parametrize("arch,profile", COMPRESSED_CASES)
+def test_compressed_steps_quantize_each_leaf_whole(runs, arch, profile):
+    """Each compressed step's codes and scales, on every rank, are the
+    plain quantizer's of the whole gradient, the expert leaves' (cut on
+    two mesh dims) too, and each gradient reaches AdamW placed as its
+    parameter."""
+    want, _ = outputs(runs, arch, profile, "ctrain")
+    _, got = outputs(runs, arch, profile, "cquant")
+    quantized_whole(got, sum(k.startswith("0/params/") for k in want))
 
 
 @pytest.mark.parametrize("arch", ARCHS)

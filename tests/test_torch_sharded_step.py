@@ -12,7 +12,15 @@ rules=)``) and the same numpy batch go through
   * 4 decode steps (``make_decode_step``) against that cache: the logits;
   * 2 train steps (``make_train_step``, lr 0 at step 0 as WSD gives it,
     then lr > 0): the losses and, after each step, every parameter and
-    both AdamW moments.
+    both AdamW moments;
+  * 2 int8-compressed train steps (``TrainSettings(compress=
+    CompressionConfig())``) in float64, from the same weights: the same,
+    and on every rank the codes and scales of each JAX leaf, which must
+    equal bit for bit the plain ``compress_gradients`` of the gradient
+    gathered whole (a rank-local max would part from them), and the
+    placements of the gradients handed to AdamW, which must be their
+    parameters'.  In fp32 a gradient's rounding can move a code across a
+    ``.5`` boundary, and Adam turns that into a move of about lr.
 
 The JAX side runs in a subprocess with four host devices
 (``XLA_FLAGS=--xla_force_host_platform_device_count=4``), its steps jitted
@@ -173,7 +181,48 @@ def jax_side(arch, inp_path, out_path):
             for k, v in _flatten({"params": p, "m": opt["m"],
                                   "v": opt["v"]}).items():
                 out[f"{profile}/train{i}/{k}"] = v
+    jax_compressed_steps(cfg, tree, lambda pr: make_rules(mesh, pr), placed,
+                         batch, REMAT[arch], out)
     np.savez(out_path, **out)
+
+
+def jax_compressed_steps(cfg, tree, rules_of, placed, batch, remat, out):
+    """The JAX half of the compressed steps: under each profile, 2 jitted
+    int8-compressed train steps (``TrainSettings(compress=
+    CompressionConfig())``, step indices 0 and 1) from ``tree`` in float64
+    (``widen_jax``), with ``placed(rules, tree)`` putting the parameters
+    where the rules say.  Each step's state is placed as the first step's
+    was, so the second call reuses the first one's compilation.  Writes
+    ``{profile}/ctrain{i}/...`` into ``out``."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec
+
+    from repro.ckpt.shards import _flatten
+    from repro.launch import steps
+    from repro.optim import AdamWConfig, CompressionConfig, adamw_init
+    widen_jax()
+    tree = jax.tree_util.tree_map(lambda a: a.astype(jnp.float64), tree)
+    settings = steps.TrainSettings(
+        remat=remat, opt=AdamWConfig(lr=LR, weight_decay=WD,
+                                     state_dtype=jnp.float64),
+        warmup=WARMUP, compress=CompressionConfig())
+    for profile in PROFILES:
+        rules = rules_of(profile)
+        p = placed(rules, tree)
+        state = (p, adamw_init(p, settings.opt))
+        like = jax.tree_util.tree_map(
+            lambda x: x.sharding if isinstance(x.sharding, NamedSharding)
+            else NamedSharding(rules.mesh, PartitionSpec()), state)
+        train = jax.jit(steps.make_train_step(cfg, settings, rules))
+        for i in range(TRAIN_STEPS):
+            p, opt = jax.tree_util.tree_map(jax.device_put, state, like)
+            p, opt, loss = train(p, opt, batch, jnp.int32(i))
+            state = (p, opt)
+            out[f"{profile}/ctrain{i}/loss"] = np.asarray(loss)
+            for k, v in _flatten({"params": p, "m": opt["m"],
+                                  "v": opt["v"]}).items():
+                out[f"{profile}/ctrain{i}/{k}"] = v
 
 
 def widen_jax():
@@ -274,10 +323,59 @@ def torch_rank(rank, init, arch, profile, inp_path, out_dir):
                     res[f"train{i}/{part}/{key}"] = arr
         placements = {n: str(tuple(p.placements)) for n, p in params.items()}
         res["placements"] = np.array(sorted(placements.items()))
+        compressed_steps(cfg, _params(inp), rules, batch, REMAT[arch], res)
         res["seconds"] = np.array(time.perf_counter() - t0)
         np.savez(Path(out_dir) / f"{profile}-rank{rank}.npz", **res)
     finally:
         dist.destroy_process_group()
+
+
+def compressed_steps(cfg, flat, rules, batch, remat, res):
+    """The torch half of the compressed steps, on one rank: 2
+    int8-compressed train steps (step indices 0 and 1) on DTensor
+    parameters placed by ``rules``, from the JAX weights ``flat`` in
+    float64 (``widen_torch``), each under ``chip_smoke.CompressRecorder``.
+    Writes into ``res`` the loss and every parameter and moment after each
+    step (``ctrain{i}/...``, gathered whole), and what was quantized
+    (``cquant{i}/...``): each JAX leaf's scale, the
+    ``chip_smoke.compression_failures`` of the rows of
+    ``compression_rows`` (the recorded codes and scale, gathered whole,
+    against the plain ``compress_gradients`` of the gradient gathered
+    whole), how many leaves were quantized as DTensors, and the gradients
+    handed to AdamW that were not placed as their parameters."""
+    import chip_smoke
+    from repro_torch import convert
+    from repro_torch.convert import jax_layout
+    from repro_torch.launch import steps
+    from repro_torch.launch.sharding import is_dtensor
+    from repro_torch.optim import AdamWConfig, CompressionConfig, adamw_init
+    widen_torch()
+    ccfg = CompressionConfig()
+    settings = steps.TrainSettings(
+        remat=remat, opt=AdamWConfig(lr=LR, weight_decay=WD,
+                                     state_dtype=torch.float64),
+        warmup=WARMUP, compress=ccfg)
+    model = convert.params_from_numpy(
+        cfg, {k: v.astype(np.float64) for k, v in flat.items()},
+        dtype=torch.float64, device="cpu", rules=rules)
+    train = steps.make_train_step(cfg, settings, rules)
+    params = dict(model.named_parameters())
+    opt = adamw_init(params, settings.opt)
+    for i in range(TRAIN_STEPS):
+        with chip_smoke.CompressRecorder() as rec:
+            model, opt, loss = train(model, opt, batch, i)
+        res[f"ctrain{i}/loss"] = _whole(loss)
+        for part, tree in (("params", params), ("m", opt["m"]),
+                           ("v", opt["v"])):
+            for key, arr in _jax_keyed(cfg, tree).items():
+                res[f"ctrain{i}/{part}/{key}"] = arr
+        rows = chip_smoke.compression_rows(cfg, rec.grads, rec.codes, ccfg)
+        res[f"cquant{i}/scales"] = np.array([r["scale"] for r in rows])
+        res[f"cquant{i}/failures"] = np.array(chip_smoke.compression_failures(
+            rows, list(jax_layout(cfg, rec.grads))), dtype=str)
+        res[f"cquant{i}/dtensor_leaves"] = np.array(sum(
+            is_dtensor(q) and is_dtensor(s) for q, s in rec.codes.values()))
+        res[f"cquant{i}/misplaced"] = np.array(rec.misplaced, dtype=str)
 
 
 def _whole(t):
@@ -419,8 +517,15 @@ def test_train_steps_match_the_jax_sharded_train_step(runs, arch, profile):
     """The losses of both steps, and after each step every parameter and
     both moments, each leaf within 2e-5 of its largest value."""
     want, got = outputs(runs, arch, profile, "train")
+    train_steps_held(got, want,
+                     np.float64 if arch in TRAIN_F64 else np.float32)
+
+
+def train_steps_held(got, want, dtype):
+    """The losses of the train steps, and after each step every parameter
+    and both moments, each leaf within 2e-5 of its largest value; step 1
+    (lr > 0) moved the parameters."""
     assert sorted(got) == sorted(want)
-    dtype = np.float64 if arch in TRAIN_F64 else np.float32
     assert got["1/params/final_ln"].dtype == want[
         "1/params/final_ln"].dtype == dtype
     for i in range(TRAIN_STEPS):
@@ -435,10 +540,45 @@ def test_train_steps_match_the_jax_sharded_train_step(runs, arch, profile):
         if err > TOL:
             bad[k] = err
     assert not bad, bad
-    # Step 1 (lr > 0) moved the parameters.
     moved = [k for k in want if k.startswith("1/params/")
              and not np.array_equal(want[k], want["0" + k[1:]])]
     assert moved
+
+
+def quantized_whole(got, n_leaves):
+    """What ``compressed_steps`` recorded of each step's quantization (one
+    rank's; the caller holds every rank's to rank 0's): each of the
+    ``n_leaves`` JAX leaves was quantized once, as DTensors, into the codes
+    and scale that the plain ``compress_gradients`` makes of the gradient
+    gathered whole, bit for bit, its error within half its scale; and each
+    gradient reached AdamW placed as its parameter."""
+    for i in range(TRAIN_STEPS):
+        assert got[f"{i}/scales"].shape == (n_leaves,)
+        assert got[f"{i}/failures"].size == 0, got[f"{i}/failures"]
+        assert int(got[f"{i}/dtensor_leaves"]) == n_leaves
+        assert got[f"{i}/misplaced"].size == 0, got[f"{i}/misplaced"]
+        assert (got[f"{i}/scales"] > 0).all()
+
+
+@pytest.mark.parametrize("arch,profile", CASES)
+def test_compressed_train_steps_match_the_jax_sharded_compressed_step(
+        runs, arch, profile):
+    """2 int8-compressed train steps in float64 (``TrainSettings(compress=
+    CompressionConfig())``): the losses and, after each step, every
+    parameter and both moments, as the uncompressed steps are held."""
+    want, got = outputs(runs, arch, profile, "ctrain")
+    train_steps_held(got, want, np.float64)
+
+
+@pytest.mark.parametrize("arch,profile", CASES)
+def test_compressed_steps_quantize_each_leaf_whole(runs, arch, profile):
+    """Each compressed step's codes and scales, on every rank, are the
+    plain quantizer's of the whole gradient (a rank-local max would part
+    from them), and each gradient reaches AdamW placed as its
+    parameter."""
+    want, _ = outputs(runs, arch, profile, "ctrain")
+    _, got = outputs(runs, arch, profile, "cquant")
+    quantized_whole(got, sum(k.startswith("0/params/") for k in want))
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -459,24 +599,30 @@ def test_parameters_are_placed_by_the_rules(runs, arch):
 
 
 def test_chip_phase_11c_is_bit_for_bit_on_one_cpu_rank():
-    """``chip_smoke.sharded_step_phase`` (phase 11c) at smoke size on a
-    one-rank gloo group: under each profile the train step, the prefill
-    and the decode steps on DTensor parameters equal the plain tensors'
-    bit for bit (every collective is over a group of one), and the group
-    is gone after."""
+    """``chip_smoke.sharded_step_phase`` (phase 11c, with its compressed
+    half) at smoke size on a one-rank gloo group: under each profile the
+    train step, the int8-compressed train step, the prefill and the
+    decode steps on DTensor parameters equal the plain tensors' bit for
+    bit (every collective is over a group of one), the compressed step's
+    codes and scales equal the plain compressed step's for every JAX
+    leaf, and the group is gone after."""
     import torch.distributed as dist
 
     import chip_smoke
     from repro_torch.configs import get_config
     from repro_torch.models import smoke
     out, _ = chip_smoke.sharded_step_phase(
-        torch, torch.device("cpu"), smoke(get_config("llama3.2-1b")))
+        torch, torch.device("cpu"), smoke(get_config("llama3.2-1b")),
+        compress=True)
     assert not dist.is_initialized()
     assert sorted(out["profiles"]) == sorted(PROFILES)
+    assert out["plain"]["leaves"] == 11     # 9 stacked over the periods
     for row in out["profiles"].values():
-        assert row["train"] == row["serve"] == {"exact": True,
-                                                "max_abs_err": 0.0}
+        assert row["train"] == row["serve"] == row["compressed_train"] == {
+            "exact": True, "max_abs_err": 0.0}
         assert row["loss"][0] == row["loss"][1]
+        assert row["compressed_loss"][0] == row["compressed_loss"][1]
+        assert row["codes"] == {"leaves": 11, "equal": 11}
 
 
 if __name__ == "__main__":
