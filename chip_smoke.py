@@ -9,11 +9,17 @@ Phases, each of which must pass (any failure exits non-zero):
      nvcc per source, started together); every entry function's
      registers, spills (none allowed) and shared memory, the HGMMA
      instructions of both products of the bf16 ``flash_attention`` at
-     every head dim (16 to 256, 112 included) and the TF32 HMMA of the
-     ``mlstm_scan`` prefill in their SASS;
+     every padded width (16 to 512) in both its instantiations (16-byte
+     copies or value by value) and the TF32 HMMA of the ``mlstm_scan``
+     prefill in their SASS;
   3. hold each kernel against its plain PyTorch version on the card, fp32
      and bf16, over the repo's sweeps (with head-dim-256, GQA-16, 24-head
-     MHA and head-dim-112 cases) and the serving paths' own shapes,
+     MHA and head-dim-112 cases, then the shapes of the widened kernels:
+     head dims 1 to 512, GQA groups past g·hd 2,048, state sizes 1 to 256,
+     ragged channel counts, chunk 256, unaligned rows) and the public
+     full widths (``*_FULL_WIDTH``: Phi-3-mini's prefill, StarCoder's and
+     Falcon-7B's decode, Mamba-2-2.7B's scan, xLSTM-7B's mLSTM), each case
+     one launch, and the serving paths' own shapes,
      gemma2's at head dim 256, qwen2-vl's (g 8) and qwen3-moe's (g 16) at
      head dim 128, musicgen's MHA and kimi-k2's (64/8 heads at head dim
      112, ragged kv_len) included (``mlstm_scan``: y, C and the normalizer
@@ -117,7 +123,9 @@ Phases, each of which must pass (any failure exits non-zero):
      kernel's time (events and profiler), bound, plain and
      library times at the serving shapes (the attention kernels at head
      dims 64, 128 and gemma2's 256, and at the shapes of qwen2-vl,
-     qwen3-moe, musicgen and kimi-k2), beside the timing method's floor;
+     qwen3-moe, musicgen and kimi-k2), beside the timing method's floor
+     and the times PERF.md records for them (``RECORDED_MS``, moves past
+     5% named); the same at the public full widths of phase 3;
  13. full-width gemma2-2b (26 layers, 13 of them local with window 4,096,
      head dim 256, softcaps 50 and 30) in fp32: the kernel path against
      the plain path as in phase 4, on one 4,352-token prompt;
@@ -268,6 +276,26 @@ ATTN_SWEEP = [
     (2, 16, 2, 130, 130, 112, True, 0, 0.0),   # kimi: g 8, hd 112, ragged
     (1, 8, 1, 96, 160, 112, True, 48, 30.0),   # hd 112, g 8, all at once
     (1, 4, 2, 70, 100, 112, False, 0, 0.0),    # hd 112, non-causal
+    # Every head dim up to 512: padded widths, unaligned rows (hd
+    # 1 and 100), the output split across blocks (hd 320 and 512).
+    (1, 2, 1, 40, 40, 1, True, 0, 0.0),        # hd 1, g 2
+    (1, 4, 2, 70, 70, 8, True, 16, 0.0),       # hd 8, window, ragged
+    (2, 4, 4, 64, 96, 24, False, 0, 30.0),     # hd 24, non-causal, softcap
+    (1, 4, 1, 100, 100, 40, True, 0, 0.0),     # hd 40, g 4, ragged
+    (1, 2, 2, 64, 64, 48, True, 0, 50.0),      # hd 48, softcap
+    (1, 6, 2, 90, 130, 72, True, 40, 0.0),     # hd 72, window, ragged
+    (1, 4, 4, 128, 128, 80, True, 0, 0.0),     # hd 80 (Phi-2)
+    (2, 4, 2, 96, 96, 96, True, 0, 30.0),      # hd 96 (Phi-3-mini), softcap
+    (1, 3, 1, 77, 77, 100, True, 0, 0.0),      # hd 100, g 3, ragged
+    (1, 2, 2, 64, 100, 160, False, 0, 0.0),    # hd 160, non-causal
+    (1, 4, 2, 80, 80, 200, True, 32, 50.0),    # hd 200, all at once
+    (1, 2, 1, 96, 96, 320, True, 0, 0.0),      # hd 320, g 2
+    (1, 2, 2, 70, 70, 512, True, 24, 30.0),    # hd 512, all at once, ragged
+]
+# Public models' full-width shapes, on the card only (phase 3): Phi-3-mini's
+# prefill, 32 heads of hd 96 over 2,048 causal tokens.
+ATTN_FULL_WIDTH = [
+    (1, 32, 32, 2048, 2048, 96, True, 0, 0.0),
 ]
 DECODE_SWEEP = [
     # (B, Hq, Hkv, T, hd, kv_len, softcap)
@@ -285,12 +313,50 @@ DECODE_SWEEP = [
     (2, 24, 24, 160, 64, 97, 0.0),   # MHA over 24 heads, ragged
     (2, 16, 2, 300, 112, 233, 0.0),  # kimi: g 8, hd 112, ragged
     (1, 8, 1, 96, 112, 70, 30.0),    # hd 112, g 8, one KV head, softcap
+    # Every head dim up to 512 and any group: g·hd past 2,048 runs
+    # as group slices; hd 37 has unaligned rows.
+    (2, 2, 2, 160, 80, 97, 0.0),     # hd 80, g 1
+    (1, 4, 2, 100, 80, 100, 30.0),   # hd 80, g 2, softcap
+    (1, 8, 1, 128, 80, 33, 0.0),     # hd 80, g 8
+    (1, 2, 2, 96, 96, 70, 0.0),      # hd 96, g 1
+    (2, 4, 2, 160, 96, 160, 0.0),    # hd 96, g 2
+    (1, 8, 1, 130, 96, 129, 50.0),   # hd 96, g 8, softcap
+    (1, 2, 2, 64, 320, 50, 0.0),     # hd 320, g 1
+    (1, 4, 2, 96, 320, 96, 30.0),    # hd 320, g 2, softcap
+    (1, 8, 1, 100, 320, 77, 0.0),    # hd 320, g 8: two group slices
+    (1, 2, 2, 64, 512, 64, 0.0),     # hd 512, g 1
+    (1, 4, 2, 80, 512, 41, 0.0),     # hd 512, g 2
+    (2, 8, 1, 96, 512, 90, 30.0),    # hd 512, g 8: two group slices
+    (1, 4, 2, 100, 37, 61, 0.0),     # hd 37: rows not 16-byte aligned
+    (1, 24, 1, 64, 128, 50, 0.0),    # g·hd 3,072: two group slices
+    (1, 71, 1, 96, 64, 90, 0.0),     # Falcon-7B's group of 71, small T
+]
+# Public models' full-width decode shapes, on the card only (phase 3):
+# StarCoder's 48 query heads over 1 KV head at hd 128 (g·hd 6,144) against
+# an 8,192-key cache, ragged; Falcon-7B's 71 over 1 at hd 64 (4,544).
+DECODE_FULL_WIDTH = [
+    (4, 48, 1, 8192, 128, 8000, 0.0),
+    (4, 71, 1, 2048, 64, 2000, 0.0),
 ]
 MLSTM_SWEEP = [                      # tests/test_kernels.py:157-162
     # (B, S, H, hd, chunk)
     (1, 32, 2, 16, 8),
     (2, 80, 4, 32, 16),        # ragged seq vs chunk
     (1, 64, 1, 64, 64),        # single chunk
+    # Any head dim up to 512 and any chunk.
+    (1, 40, 2, 8, 16),         # hd 8
+    (1, 50, 2, 24, 32),        # hd 24
+    (2, 30, 1, 40, 8),         # hd 40
+    (1, 70, 2, 100, 64),       # hd 100, ragged
+    (1, 40, 1, 448, 32),       # hd 448
+    (1, 36, 1, 512, 16),       # hd 512
+    (1, 300, 2, 64, 256),      # chunk 256 against S 300
+    (1, 45, 2, 37, 16),        # hd 37: rows not 16-byte aligned
+]
+# xLSTM-7B's mLSTM width, on the card only (phase 3): 8 heads of hd 512
+# over 2,048 tokens.
+MLSTM_FULL_WIDTH = [
+    (1, 2048, 8, 512, 128),
 ]
 MLSTM_C_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the returned state
 MAMBA_SWEEP = [                      # tests/test_kernels.py:107-112
@@ -298,7 +364,32 @@ MAMBA_SWEEP = [                      # tests/test_kernels.py:107-112
     (1, 32, 64, 8, 8),
     (2, 100, 128, 16, 16),     # ragged seq vs chunk
     (1, 64, 256, 4, 64),       # single chunk
+    # Any state size up to 256 and any di.
+    (1, 40, 64, 1, 16),        # N 1
+    (2, 33, 32, 2, 16),        # N 2, di 32
+    (1, 50, 96, 12, 16),       # N 12, di 96
+    (1, 70, 200, 32, 32),      # N 32, di 200, ragged
+    (2, 40, 64, 64, 16),       # N 64
+    (1, 30, 96, 128, 16),      # N 128, di 96
+    (1, 20, 200, 256, 8),      # N 256, di 200
+    (1, 25, 37, 16, 8),        # di 37: rows not 16-byte aligned
 ]
+# Mamba-2-2.7B's width, on the card only (phase 3): di 5,120 at N 128.
+MAMBA_FULL_WIDTH = [
+    (4, 256, 5120, 128, 0),
+]
+# Device ms that PERF.md §6 records for phase 12's shapes (NVIDIA H100 80GB
+# HBM3, 700 W), printed beside this run's times: a move past 5% is named.
+RECORDED_MS = {
+    "flash_attention": {"hd64": 0.01981, "hd128": 0.02584, "hd256": 0.02369,
+                        "qwen2-vl-72b": 0.04537, "qwen3-moe-235b-a22b": 0.04532,
+                        "musicgen-medium": 0.01894, "kimi-k2-1t-a32b": 0.04580},
+    "flash_decode": {"hd64": 0.01222, "hd128": 0.01542, "hd256": 0.01517,
+                     "qwen2-vl-72b": 0.02127, "qwen3-moe-235b-a22b": 0.02861,
+                     "musicgen-medium": 0.01556, "kimi-k2-1t-a32b": 0.02140},
+    "mlstm_scan": {"prefill": 0.12306, "decode": 0.01348},
+    "mamba_scan": {"prefill": 0.07215, "decode": 0.00780},
+}
 MAMBA_H_TOL = 5e-3          # the returned state (tests/test_kernels.py:130)
 
 # The serving path: llama3.2-1b, 4 requests, 256-token prompts, 32 new
@@ -2628,14 +2719,17 @@ def run(torch) -> int:
     # mLSTM prefill's on them as 3xTF32 (HMMA .TF32).
     from repro_torch.kernels import (decode_attention, flash_attention,
                                      mamba_scan, mlstm_scan)
+    def wide_smem(group, hd, item):
+        return decode_attention.plan(4, group, 1, hd, 8000, item).smem
+
     for name in _build.KERNELS:
         for fn, (regs, st, ld, smem) in ptxas_report(
                 _build.build_log(name)).items():
             dyn = ""
             param = re.search(r"Li(\d+)E", fn)
             if "attn_wgmma_kernel" in fn:
-                hd = int(fn.split("attn_wgmma_kernelILi")[1].split("E")[0])
-                dyn = f", {flash_attention.wgmma_smem_bytes(hd)} B dynamic"
+                hp = int(fn.split("attn_wgmma_kernelILi")[1].split("E")[0])
+                dyn = f", {flash_attention.wgmma_smem_bytes(hp)} B dynamic"
             elif "decode_kernel" in fn:
                 item = 2 if "bfloat16" in fn else 4
                 dyn = (f", {decode_attention.smem_bytes(4, 128, item)} B "
@@ -2645,7 +2739,10 @@ def run(torch) -> int:
                        f"{decode_attention.smem_bytes(16, 128, item)} B at "
                        f"g 16, hd 128, "
                        f"{decode_attention.smem_bytes(8, 112, item)} B at "
-                       f"g 8, hd 112")
+                       f"g 8, hd 112, "
+                       f"{wide_smem(48, 128, item)} B at g 48, hd 128 (3 "
+                       f"group slices), {wide_smem(8, 512, item)} B at g 8, "
+                       f"hd 512")
             elif name == "mlstm_scan" and "scan_kernel" in fn and param:
                 et = int(param.group(1))
                 dyn = (f", {mlstm_scan.scan_smem_bytes(MLSTM_HD, et)} B "
@@ -2657,18 +2754,22 @@ def run(torch) -> int:
             log(f"[ptxas {name}] {fn}: {regs} registers, spill stores {st} "
                 f"B, spill loads {ld} B, {smem} B static shared{dyn}")
             check(st == 0 and ld == 0, f"{fn} spills ({st} B, {ld} B)")
-    # Both products of the bf16 kernel on the tensor cores at every head
-    # dim: S = QK^T (B K-major) and O += PV (B transposed).
+    # Both products of the bf16 kernel on the tensor cores at every padded
+    # width: S = QK^T (B K-major) and O += PV (B transposed).
     hgmma = sass_forms(_build.lib_path("flash_attention"), "HGMMA")
-    for hd in flash_attention.HEAD_DIMS:
-        forms = next((f for fn, f in hgmma.items()
-                      if f"attn_wgmma_kernelILi{hd}E" in fn), {})
-        log(f"[sass flash_attention] hd {hd}: {sum(forms.values())} HGMMA "
-            f"instructions: {json.dumps(forms)}")
-        check(any("tnspB" in f for f in forms) and
-              any("tnspB" not in f for f in forms),
-              f"flash_attention's bf16 kernel at hd {hd} runs no HGMMA "
-              f"for one product")
+    for hp in flash_attention.WGMMA_WIDTHS:
+        ow = flash_attention.out_width(hp)
+        for aligned in (1, 0):      # the 16-byte copies' and the others'
+            forms = next((f for fn, f in hgmma.items()
+                          if f"attn_wgmma_kernelILi{hp}ELi{ow}ELb{aligned}E"
+                          in fn), {})
+            log(f"[sass flash_attention] width {hp} (output {ow} a block, "
+                f"aligned {aligned}): {sum(forms.values())} HGMMA "
+                f"instructions: {json.dumps(forms)}")
+            check(any("tnspB" in f for f in forms) and
+                  any("tnspB" not in f for f in forms),
+                  f"flash_attention's bf16 kernel at width {hp} (aligned "
+                  f"{aligned}) runs no HGMMA for one product")
     hmma = {}
     for forms in sass_forms(_build.lib_path("mlstm_scan"), "HMMA").values():
         for f, n in forms.items():
@@ -2699,7 +2800,13 @@ def run(torch) -> int:
         errs[f"flash_attention {name}"] = {}
         errs[f"flash_decode {name}"] = {}
 
-    def hold(name, got, want, dtype, what, main_shape=False, tol=None):
+    # The largest error over the cases past each sweep's first ones (the
+    # head dims, groups, state sizes and chunks of the widened kernels) and
+    # over the public models' full widths.
+    wide_errs = {}
+
+    def hold(name, got, want, dtype, what, main_shape=False, tol=None,
+             wide=False):
         torch.cuda.synchronize()
         err = max_err(got, want)
         tol = TOL[dtype] if tol is None else tol
@@ -2709,6 +2816,9 @@ def run(torch) -> int:
               f"{name} {what} {dtype}: max abs err {err:g} (tol {tol})")
         if main_shape:
             errs[name][dtype] = max(errs[name].get(dtype, 0.0), err)
+        if wide:
+            at = wide_errs.setdefault(name, {})
+            at[dtype] = max(at.get(dtype, 0.0), err)
         return err
 
     def mlstm_inputs(seed, B, S, H, hd, dtype, k_scale=1.0):
@@ -2722,7 +2832,7 @@ def run(torch) -> int:
         return (q, k.to(DT[dtype]), v, i.to(DT[dtype]), f.to(DT[dtype]))
 
     def hold_mlstm(inp, c0, n0, dtype, what, chunk=128, main_shape=False,
-                   in_place=False):
+                   in_place=False, wide=False):
         """One mlstm_scan call that carries the normalizer, against
         ref.mlstm_ref: y at TOL, C and n at MLSTM_C_TOL.  ``in_place``
         passes out=c0 and n_out=n0, as the decode step does."""
@@ -2733,11 +2843,12 @@ def run(torch) -> int:
             n_out=n_in if in_place else None)
         check((c_last is c_in and n_last is n_in) or not in_place,
               "mlstm_scan out= and n_out= are the returned states")
-        hold("mlstm_scan", y, want_y.to(y.dtype), dtype, what, main_shape)
+        hold("mlstm_scan", y, want_y.to(y.dtype), dtype, what, main_shape,
+             wide=wide)
         hold("mlstm_scan_state", c_last, want_c, dtype, what, main_shape,
-             tol=MLSTM_C_TOL[dtype])
+             tol=MLSTM_C_TOL[dtype], wide=wide)
         hold("mlstm_scan_n", n_last, want_n, dtype, what, main_shape,
-             tol=MLSTM_C_TOL[dtype])
+             tol=MLSTM_C_TOL[dtype], wide=wide)
         return y, c_last
 
     def mamba_inputs(seed, B, S, di, N, dtype, h0_scale=0.0):
@@ -2751,7 +2862,8 @@ def run(torch) -> int:
         h0 = randn(seed + 5, (B, di, N), "float32") * h0_scale
         return u, dt.to(DT[dtype]), a, b, c, h0
 
-    def hold_mamba(inp, dtype, what, main_shape=False, in_place=False):
+    def hold_mamba(inp, dtype, what, main_shape=False, in_place=False,
+                   wide=False):
         """One mamba_scan call against ref.mamba_scan_ref: y at TOL, the
         state at MAMBA_H_TOL.  ``in_place`` passes out=h0, as the decode
         step does."""
@@ -2760,9 +2872,10 @@ def run(torch) -> int:
         y, h = ops.selective_scan(*inp[:-1], h0, out=h0 if in_place
                                   else None)
         check(h is h0 or not in_place, "mamba_scan out= is the state")
-        hold("mamba_scan", y, want_y.to(y.dtype), dtype, what, main_shape)
+        hold("mamba_scan", y, want_y.to(y.dtype), dtype, what, main_shape,
+             wide=wide)
         hold("mamba_scan_state", h, want_h, dtype, what, main_shape,
-             tol=MAMBA_H_TOL)
+             tol=MAMBA_H_TOL, wide=wide)
         return y, h
 
     jcfg = get_config(JAMBA)
@@ -2770,15 +2883,23 @@ def run(torch) -> int:
     g2cfg = get_config(GEMMA2)
     G_HQ, G_HKV, G_CAP = g2cfg.n_heads, g2cfg.n_kv_heads, g2cfg.attn_softcap
     n_checks = 0
+    t_phase3 = time.perf_counter()
     for dtype in ("float32", "bfloat16"):
-        for case in ATTN_SWEEP:
+        # The sweeps' cases past their first 16, 14, 3 and 3 (and the
+        # public full widths) take the widened kernels' shapes: each must
+        # launch its kernel once, with no copy of a padded tensor.
+        for i, case in enumerate(ATTN_SWEEP + ATTN_FULL_WIDTH):
             B, Hq, Hkv, Sq, Skv, hd, causal, window, cap = case
             q = randn(1, (B, Hq, Sq, hd), dtype)
             k = randn(2, (B, Hkv, Skv, hd), dtype)
             v = randn(3, (B, Hkv, Skv, hd), dtype)
             kw = dict(causal=causal, window=window, softcap=cap)
-            hold("flash_attention", ops.flash_attention(q, k, v, **kw),
-                 ref.attention_ref(q, k, v, **kw), dtype, str(case))
+            ops.reset_launch_counts()
+            got = ops.flash_attention(q, k, v, **kw)
+            check(ops.launch_counts()["flash_attention"] == 1,
+                  f"flash_attention {case} launched no kernel")
+            hold("flash_attention", got, ref.attention_ref(q, k, v, **kw),
+                 dtype, str(case), wide=i >= 16)
             n_checks += 1
         q = randn(4, (1, 2, 16, 32), dtype)
         k = randn(5, (1, 2, 64, 32), dtype)
@@ -2804,15 +2925,19 @@ def run(torch) -> int:
                      ref.attention_ref(q, k, v, **kw), dtype,
                      f"hd {hd} {kw}")
                 n_checks += 1
-        for case in DECODE_SWEEP:
+        for i, case in enumerate(DECODE_SWEEP + DECODE_FULL_WIDTH):
             B, Hq, Hkv, T, hd, kv_len, cap = case
             q = randn(7, (B, Hq, 1, hd), dtype)
             k = randn(8, (B, Hkv, T, hd), dtype)
             v = randn(9, (B, Hkv, T, hd), dtype)
-            hold("flash_decode", ops.flash_decode(q, k, v, kv_len,
-                                                  softcap=cap),
+            ops.reset_launch_counts()
+            got = ops.flash_decode(q, k, v, kv_len, softcap=cap)
+            check(ops.launch_counts()["flash_decode"] == 1,
+                  f"flash_decode {case} launched no kernel")
+            hold("flash_decode", got,
                  ref.attention_ref(q, k, v, causal=False, softcap=cap,
-                                   kv_len=kv_len), dtype, str(case))
+                                   kv_len=kv_len), dtype, str(case),
+                 wide=i >= 14)
             n_checks += 1
         # The serving path's shapes, in the model's layouts: (B,S,N,hd)
         # activations and a (B,T,Nkv,hd) cache seen through transposes.
@@ -2839,12 +2964,17 @@ def run(torch) -> int:
         # default chunk, a nonzero state carried across two calls, and the
         # serving shapes (prefill from a zero state; a decode step updating
         # a nonzero state in place).
-        for case in MLSTM_SWEEP:
+        for i, case in enumerate(MLSTM_SWEEP + MLSTM_FULL_WIDTH):
             B, S, H, hd, chunk = case
-            hold_mlstm(mlstm_inputs(30, B, S, H, hd, dtype),
+            # The widened shapes' k as the model scales it (1/sqrt(hd)).
+            k_scale = 1.0 if i < 3 else hd ** -0.5
+            ops.reset_launch_counts()
+            hold_mlstm(mlstm_inputs(30, B, S, H, hd, dtype, k_scale),
                        torch.zeros((B, H, hd, hd), device=dev),
                        randn(35, (B, H, hd), "float32") * 0.3, dtype,
-                       str(case), chunk=chunk)
+                       str(case), chunk=chunk, wide=i >= 3)
+            check(ops.launch_counts()["mlstm_scan"] == 1,
+                  f"mlstm_scan {case} launched no kernel")
         inp = mlstm_inputs(40, 2, 200, 2, 64, dtype)
         c0 = randn(45, (2, 2, 64, 64), "float32") * 0.3
         y, c_last = hold_mlstm(inp, c0, randn(46, (2, 2, 64), "float32"),
@@ -2868,7 +2998,7 @@ def run(torch) -> int:
                    randn(66, (BATCH, H, MLSTM_HD), "float32") * 0.1,
                    dtype, f"decode ({BATCH},1,{H},{MLSTM_HD}) in place",
                    main_shape=True, in_place=True)
-        n_checks += len(MLSTM_SWEEP) + 4
+        n_checks += len(MLSTM_SWEEP) + len(MLSTM_FULL_WIDTH) + 4
         # Jamba's attention at head dim 128: the prefill, and decode steps
         # against its (4,8,512,128) cache.
         q = randn(90, (BATCH, PROMPT, 32, JHD), dtype).transpose(1, 2)
@@ -2938,10 +3068,13 @@ def run(torch) -> int:
         # mamba_scan: the repo's sweep from a nonzero state, the state
         # carried across two calls, and Jamba's serving shapes (the prefill
         # from a zero state; a decode step updating the state in place).
-        for case in MAMBA_SWEEP:
+        for i, case in enumerate(MAMBA_SWEEP + MAMBA_FULL_WIDTH):
             B, S, di, N, _ = case
+            ops.reset_launch_counts()
             hold_mamba(mamba_inputs(100, B, S, di, N, dtype, 0.3), dtype,
-                       str(case))
+                       str(case), wide=i >= 3)
+            check(ops.launch_counts()["mamba_scan"] == 1,
+                  f"mamba_scan {case} launched no kernel")
         inp = mamba_inputs(110, 2, 200, 256, 16, dtype, 0.3)
         y, h = hold_mamba(inp, dtype, "ragged (2,200,256,16)")
         u, dt, a, b, c, h0 = inp
@@ -2958,9 +3091,11 @@ def run(torch) -> int:
         hold_mamba(mamba_inputs(130, BATCH, 1, JDI, JN, dtype, 0.5), dtype,
                    f"decode ({BATCH},1,{JDI},{JN}) in place",
                    main_shape=True, in_place=True)
-        n_checks += len(MAMBA_SWEEP) + 4
+        n_checks += len(MAMBA_SWEEP) + len(MAMBA_FULL_WIDTH) + 4
     log(f"[kernels] {n_checks} comparisons with the plain version passed; "
         f"main-shape max abs err {json.dumps(errs)}")
+    log(f"[kernels] the widened shapes' max abs err {json.dumps(wide_errs)}; "
+        f"phase 3 {time.perf_counter() - t_phase3:.1f} s")
 
     # -- 4. full-width llama3.2-1b, fp32: kernel path vs plain path -----------
     def rel_err(a, b):
@@ -3484,6 +3619,7 @@ def run(torch) -> int:
     step_ms, step_prof, step_k = scan_call(
         lambda: ops.mlstm(*step, c_step, n0=n_step, out=c_step,
                           n_out=n_step), 1, "mlstm_scan decode")
+    now_ms = {"mlstm_scan": {"prefill": pre_ms, "decode": step_ms}}
     kernels.append({
         "name": "mlstm_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mlstm_scan.cu",
@@ -3530,6 +3666,7 @@ def run(torch) -> int:
     step_ms, step_prof, _ = scan_call(
         lambda: ops.selective_scan(*step, out=step[-1]), 1,
         "mamba_scan decode")
+    now_ms["mamba_scan"] = {"prefill": pre_ms, "decode": step_ms}
     kernels.append({
         "name": "mamba_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
@@ -3564,6 +3701,107 @@ def run(torch) -> int:
                          "h_last written; flops = 8*B*S*di*N (the "
                          "recurrence); exps = B*S*di*N",
     })
+    # The old shapes' times beside the recorded ones.
+    for name in ("flash_attention", "flash_decode"):
+        now_ms[name] = {"hd64": llama_t[name]["ms"],
+                        "hd128": jamba_t[name]["ms"],
+                        "hd256": gemma_t[name]["ms"],
+                        **{arch: ts[name]["ms"]
+                           for arch, ts in model_t.items()}}
+    moved = []
+    for name, shapes in RECORDED_MS.items():
+        for shape, was in shapes.items():
+            ratio = now_ms[name][shape] / was
+            if abs(ratio - 1) > 0.05:
+                moved.append(f"{name} {shape}")
+            log(f"[timing] {name} {shape}: {now_ms[name][shape]:.5f} ms, "
+                f"recorded {was:.5f} ms, ratio {ratio:.3f}"
+                f"{' (moved past 5%)' if abs(ratio - 1) > 0.05 else ''}")
+    log(f"[timing] moved past 5% of the recorded times: {moved or 'none'}")
+
+    # The public models' full widths that only the widened kernels take
+    # (phase 3 holds them against the plain version): device ms beside the
+    # plain version, SDPA where one call computes the same attention, and
+    # the bound.
+    def wide_entry(fn, plain, bound, library=None, shape=""):
+        return {"ms": cold_ms(fn),
+                "plain_ms": cold_ms(plain, iters=3, warmup=1),
+                "library_ms": None if library is None else cold_ms(library),
+                "bound_ms": bound[0], "bound_by": bound[1], "shape": shape}
+
+    wide = {}
+    q, k, v = (randn(300 + i, (1, 2048, 32, 96), "bfloat16").transpose(1, 2)
+               for i in range(3))
+    qc, kc_, vc_ = (t.contiguous() for t in (q, k, v))
+    wide["flash_attention"] = {"phi3-mini": wide_entry(
+        lambda: ops.flash_attention(q, k, v),
+        lambda: ref.attention_ref(q, k, v),
+        attention_bound(1, 32, 32, 2048, 2048, 96, causal=True),
+        lambda: F.scaled_dot_product_attention(qc, kc_, vc_, is_causal=True),
+        "q,k,v (1,32,2048,96) bf16 causal")}
+    del q, k, v, qc, kc_, vc_
+    wide["flash_decode"] = {}
+    for tag, (hq, hd, T, n) in (("starcoder", (48, 128, 8192, 8000)),
+                                ("falcon-7b", (71, 64, 2048, 2000))):
+        qd = randn(310, (BATCH, 1, hq, hd), "bfloat16").transpose(1, 2)
+        kc, vc = (randn(311 + i, (BATCH, T, 1, hd), "bfloat16").transpose(
+            1, 2) for i in range(2))
+        ke, ve = (t[:, :, :n].expand(-1, hq, -1, -1).contiguous()
+                  for t in (kc, vc))
+        qdc = qd.contiguous()
+        wide["flash_decode"][tag] = wide_entry(
+            lambda: ops.flash_decode(qd, kc, vc, n),
+            lambda: ref.attention_ref(qd, kc, vc, causal=False, kv_len=n),
+            attention_bound(BATCH, hq, 1, 1, T, hd, causal=False, kv_len=n),
+            lambda: F.scaled_dot_product_attention(qdc, ke, ve),
+            f"q ({BATCH},{hq},1,{hd}) cache ({BATCH},1,{T},{hd}) bf16 "
+            f"kv_len {n}")
+        del qd, kc, vc, ke, ve, qdc
+    pre = mamba_inputs(320, BATCH, PROMPT, 5120, 128, "float32")
+    step = mamba_inputs(330, BATCH, 1, 5120, 128, "float32", 0.5)
+    wide["mamba_scan"] = {
+        "mamba2-2.7b": wide_entry(
+            lambda: ops.selective_scan(*pre), lambda: ref.mamba_scan_ref(*pre),
+            mamba_bound(BATCH, PROMPT, 5120, 128),
+            shape=f"prefill u,dt ({BATCH},{PROMPT},5120) N 128 fp32"),
+        "mamba2-2.7b_decode": wide_entry(
+            lambda: ops.selective_scan(*step, out=step[-1]),
+            lambda: ref.mamba_scan_ref(*step),
+            mamba_bound(BATCH, 1, 5120, 128),
+            shape=f"decode u,dt ({BATCH},1,5120) N 128 fp32, in place")}
+    pre = mlstm_inputs(340, 1, 2048, 8, 512, "float32", 512 ** -0.5)
+    c_pre, n_pre = (torch.zeros(s, device=dev)
+                    for s in ((1, 8, 512, 512), (1, 8, 512)))
+    step = mlstm_inputs(350, 1, 1, 8, 512, "float32", 512 ** -0.5)
+    c_step = randn(355, (1, 8, 512, 512), "float32") * 0.1
+    n_step = randn(356, (1, 8, 512), "float32") * 0.1
+    wide["mlstm_scan"] = {
+        "xlstm-7b": wide_entry(
+            lambda: ops.mlstm(*pre, c_pre, n0=n_pre),
+            lambda: ref.mlstm_ref(*pre, c_pre, n_pre),
+            mlstm_bound(1, 2048, 8, 512),
+            shape="prefill q,k,v (1,2048,8,512) fp32 chunk 128"),
+        "xlstm-7b_decode": wide_entry(
+            lambda: ops.mlstm(*step, c_step, n0=n_step, out=c_step,
+                              n_out=n_step),
+            lambda: ref.mlstm_ref(*step, c_step, n_step),
+            mlstm_bound(1, 1, 8, 512),
+            shape="decode q,k,v (1,1,8,512) fp32, in place")}
+    del pre, step, c_pre, n_pre, c_step, n_step
+    for entry in kernels:
+        name = entry["name"]
+        entry["wide_max_abs_err"] = wide_errs[name]["bfloat16"]
+        entry["wide_max_abs_err_fp32"] = wide_errs[name]["float32"]
+        entry["recorded_ms"] = RECORDED_MS[name]
+        entry["recorded_ratio"] = {k: now_ms[name][k] / v
+                                   for k, v in RECORDED_MS[name].items()}
+        for tag, t in wide[name].items():
+            sdpa = t["library_ms"]
+            log(f"[timing] {name} {tag}, {t['shape']}: {t['ms']:.5f} ms, "
+                f"bound {t['bound_ms']:.5f} ms ({t['bound_by']}), plain "
+                f"{t['plain_ms']:.5f} ms, SDPA "
+                f"{'none' if sdpa is None else f'{sdpa:.5f} ms'}")
+            entry.update({f"{tag}_{key}": value for key, value in t.items()})
     del flush
 
     # -- 13.-16. gemma2-2b, gemma3-4b, minicpm-2b at full width ---------------

@@ -13,28 +13,41 @@
 // launch, one trip to device memory, the merge.
 //
 // Design:
-//   * One block per (batch, KV head, KV split).  The block holds the g query
-//     rows that share the KV head, so every K/V byte read from device memory
-//     serves all g rows (the TPU kernel's "GQA group forms the q tile").
-//     At 4 rows the tensor cores would buy nothing: CUDA cores, fp32 math.
+//   * One block per (batch, KV head, group slice, KV split).  The block
+//     holds up to gs query rows that share the KV head, so every K/V byte
+//     read from device memory serves all of them (the TPU kernel's "GQA
+//     group forms the q tile").  At a few rows the tensor cores would buy
+//     nothing: CUDA cores, fp32 math.
+//   * Group slices: a block keeps its rows' outputs in registers, at most
+//     1,024 pairs of columns (8 a thread), so a group wider than that
+//     (StarCoder's 48 heads at hd 128, Falcon-7B's 71 at hd 64) is cut into
+//     ceil(g / gs) slices of gs <= 1024 / ceil(hd / 2) rows, each its own
+//     block streaming the same K/V tiles, which L2 mostly catches.  The
+//     wrapper's plan picks gs, the key tile (32 keys, 16 where two stages
+//     of 32 would not fit the 227 KB: fp32 rows past hd 441) and the split.
 //   * Split-KV: at batch 4 the (batch, KV head) grid has only 32 blocks for
-//     132 SMs, so the wrapper's split_plan spreads the valid 32-key tiles
+//     132 SMs, so the wrapper's split_plan spreads the valid key tiles
 //     over gridDim.z (at kv_len 272: 9 splits of one tile, 288 blocks).
 //   * Bytes in flight: a block issues its first two K/V tiles (at the
 //     serving shapes, its whole range) as cp.async 16-byte copies before it
 //     touches q, then waits once; longer splits stream through the same
 //     2-stage ring, a tile refilled as soon as it is consumed.  Tiles stay
 //     in the input dtype in shared memory (bf16 is converted on read), each
-//     row padded by 16 bytes so that a warp's 16-byte row reads (one key a
-//     lane) and its column reads are free of bank conflicts.  Keys at or
-//     past kv_len are never read (the copy zero-fills them), so the bytes
-//     moved follow the sequence, not the cache's capacity.
+//     row rounded up to whole 16-byte vectors and padded by 16 more bytes,
+//     so that a warp's 16-byte row reads (one key a lane) and its column
+//     reads are free of bank conflicts.  Where some K or V row is not
+//     whole 16-byte vectors at 16-byte aligned addresses (an odd hd or
+//     stride), the kernel's other instantiation reads each vector's values
+//     one by one, zero past hd, and the thread stores them itself.
+//     Keys at or past kv_len are never read (the copy zero-fills them), so
+//     the bytes moved follow the sequence, not the cache's capacity.
 //   * One launch: each split writes its fp32 (m, l, acc) partials; the last
-//     block of a (batch, KV head) to finish merges them.  Every block
-//     fences its partials (one thread, after a barrier) and draws a ticket
-//     from an int32 counter per (batch, KV head) with an atomic add; the
-//     block that draws n_split - 1 merges the partials in one pass and
-//     writes the output, then stores 0 back into the counter.  So a call leaves the counters zeroed, and
+//     block of a (batch, KV head, group slice) to finish merges them.
+//     Every block fences its partials (one thread, after a barrier) and
+//     draws a ticket from an int32 counter per (batch, KV head, group
+//     slice) with an atomic add; the block that draws n_split - 1 merges
+//     the partials in one pass and writes the output, then stores 0 back
+//     into the counter.  So a call leaves the counters zeroed, and
 //     the next call on the same stream, which stream order starts only
 //     after this kernel has finished, finds them so with no memset.  Two
 //     calls on two streams at once would share counters: the wrapper keeps
@@ -53,9 +66,8 @@
 namespace {
 
 constexpr int NT = 128;             // threads per block (4 warps)
-constexpr int BK = 32;              // keys per tile: one a lane in the softmax
 constexpr int NSTAGE = 2;           // tiles in flight
-constexpr int MAX_GHD = 2048;       // largest g * hd held in registers
+constexpr int MAX_GHD = 2048;       // largest gs * 2 ceil(hd / 2) in registers
 constexpr int PAIRS = MAX_GHD / 2 / NT;   // output pairs per thread
 constexpr float NEG_INF = -1e30f;
 
@@ -71,6 +83,10 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
+// The bits of one element, for the copies that do not convert.
+template <typename T> struct Raw;
+template <> struct Raw<float> { using type = uint32_t; };
+template <> struct Raw<__nv_bfloat16> { using type = uint16_t; };
 
 // One 16-byte vector of a staged row as fp32.
 __device__ __forceinline__ void load16(float* e, const unsigned char* p,
@@ -126,10 +142,12 @@ struct DecodeArgs {
   const void* k;          // (B, Hkv, T, hd), any strides with unit last dim
   const void* v;
   void* o;                // (B, Hq, 1, hd)
-  float* part_acc;        // (B*Hq, n_split, hd)   when n_split > 1
+  float* part_acc;        // (B*Hq, n_split, 2 ceil(hd / 2)) when n_split > 1
   float* part_ml;         // (B*Hq, n_split, 2)
-  int* tickets;           // (B*Hkv), zero between calls
+  int* tickets;           // (B*Hkv*ngs), zero between calls
   int B, Hq, Hkv, T, hd, g;
+  int gs, ngs;            // rows of a group slice, slices of a group
+  int vec;                // every K and V row 16-byte aligned, whole vectors
   long long q_sb, q_sh;
   long long k_sb, k_sh, k_st;
   long long v_sb, v_sh, v_st;
@@ -139,31 +157,44 @@ struct DecodeArgs {
   int n_split, tiles_per_split;
 };
 
-// Bytes of one staged K or V row: the row and a 16-byte pad.
+// Elements of a staged row of q, K or V: hd rounded up to whole 16-byte
+// vectors (zeros past hd).
+__host__ __device__ constexpr int staged(int hd, int item) {
+  return (hd * item + 15) / 16 * 16 / item;
+}
+// Bytes of one staged K or V row: the staged elements and a 16-byte pad.
 __host__ __device__ constexpr int row_bytes(int hd, int item) {
-  return hd * item + 16;
+  return staged(hd, item) * item + 16;
 }
 
-// Dynamic shared memory: NSTAGE (K tile, V tile) pairs, then fp32 q, the
-// tile's probabilities and the rows' running max, sum and rescale.
-size_t smem_bytes(int g, int hd, int item) {
-  return static_cast<size_t>(NSTAGE) * 2 * BK * row_bytes(hd, item) +
-         sizeof(float) * (g * hd + g * BK + 3 * g);
+// Dynamic shared memory: NSTAGE (K tile, V tile) pairs of bk keys, then
+// fp32 q, the tile's probabilities and the rows' running max, sum and
+// rescale (decode_attention.smem_bytes on the host).
+size_t smem_bytes(int gs, int hd, int item, int bk) {
+  return static_cast<size_t>(NSTAGE) * 2 * bk * row_bytes(hd, item) +
+         sizeof(float) * (gs * staged(hd, item) + gs * bk + 3 * gs);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(NT) decode_kernel(DecodeArgs a) {
+template <typename T, int BK, bool ALIGNED>
+__global__ void __launch_bounds__(NT, 4) decode_kernel(DecodeArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int last_block;
-  const int hd = a.hd, g = a.g;
+  constexpr int VEC = 16 / sizeof(T);        // elements per 16-byte vector
+  using R = typename Raw<T>::type;
+  // ALIGNED rows are whole 16-byte vectors (hd * itemsize % 16 == 0).
+  const int hd = a.hd, hdq = ALIGNED ? hd : staged(hd, sizeof(T));
+  const int hp2 = (hd + 1) / 2;             // column pairs of a row
   const int rb = row_bytes(hd, sizeof(T)), tile_b = BK * rb;
+  const int b = blockIdx.x, split = blockIdx.z;
+  const int h = blockIdx.y / a.ngs, slice = blockIdx.y - h * a.ngs;
+  const int qh0 = h * a.g + slice * a.gs;    // this block's first q head
+  const int g = min(a.gs, a.g - slice * a.gs);   // its rows
   float* qs = reinterpret_cast<float*>(smem + NSTAGE * 2 * tile_b);
-  float* ps = qs + g * hd;          // g * BK scores, then probabilities
-  float* row_m = ps + g * BK;       // g running max
-  float* row_l = row_m + g;         // g running sum
-  float* row_alpha = row_l + g;     // g rescale of this tile
+  float* ps = qs + a.gs * hdq;      // g * BK scores, then probabilities
+  float* row_m = ps + a.gs * BK;    // g running max
+  float* row_l = row_m + a.gs;      // g running sum
+  float* row_alpha = row_l + a.gs;  // g rescale of this tile
 
-  const int b = blockIdx.x, h = blockIdx.y, split = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const T* k = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
   const T* v = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
@@ -171,8 +202,7 @@ __global__ void __launch_bounds__(NT) decode_kernel(DecodeArgs a) {
   const int t_end = min(a.kv_len, t_begin + a.tiles_per_split * BK);
   const int n_tiles = (t_end - t_begin + BK - 1) / BK;   // >= 1
 
-  constexpr int VEC = 16 / sizeof(T);        // elements per 16-byte vector
-  const int vpr = hd / VEC;
+  const int vpr = hdq / VEC;
   // Issue tile t's copies into its stage, one commit group per tile.
   auto issue = [&](int t) {
     unsigned char* ks = smem + (t % NSTAGE) * 2 * tile_b;
@@ -181,24 +211,40 @@ __global__ void __launch_bounds__(NT) decode_kernel(DecodeArgs a) {
     for (int i = tid; i < BK * vpr; i += NT) {
       const int j = i / vpr, c = i - j * vpr, key = t0 + j;
       const bool ok = key < t_end;
-      cp_async16(ks + j * rb + c * 16, ok ? k + key * a.k_st + c * VEC : k,
-                 ok ? 16 : 0);
-      cp_async16(vs + j * rb + c * 16, ok ? v + key * a.v_st + c * VEC : v,
-                 ok ? 16 : 0);
+      if constexpr (ALIGNED) {
+        cp_async16(ks + j * rb + c * 16, ok ? k + key * a.k_st + c * VEC : k,
+                   ok ? 16 : 0);
+        cp_async16(vs + j * rb + c * 16, ok ? v + key * a.v_st + c * VEC : v,
+                   ok ? 16 : 0);
+      } else {
+        const R* kr = reinterpret_cast<const R*>(k + key * a.k_st);
+        const R* vr = reinterpret_cast<const R*>(v + key * a.v_st);
+        R* kd = reinterpret_cast<R*>(ks + j * rb + c * 16);
+        R* vd = reinterpret_cast<R*>(vs + j * rb + c * 16);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          const int d = c * VEC + e;
+          const bool in = ok && d < hd;
+          kd[e] = in ? kr[d] : R(0);
+          vd[e] = in ? vr[d] : R(0);
+        }
+      }
     }
     cp_async_commit();
   };
   for (int t = 0; t < NSTAGE && t < n_tiles; ++t) issue(t);
 
-  // q, pre-scaled, while the first tiles are in flight.
+  // q, pre-scaled and zero past hd, while the first tiles are in flight.
   const T* q = static_cast<const T*>(a.q);
-  for (int i = tid; i < g * hd; i += NT) {
-    const int r = i / hd, d = i - r * hd;
-    qs[i] = to_f(q[b * a.q_sb + (h * g + r) * a.q_sh + d]) * a.scale;
+  for (int i = tid; i < g * hdq; i += NT) {
+    const int r = i / hdq, d = i - r * hdq;
+    qs[i] = ALIGNED || d < hd
+                ? to_f(q[b * a.q_sb + (qh0 + r) * a.q_sh + d]) * a.scale
+                : 0.f;
   }
-  if (tid < g) {
-    row_m[tid] = NEG_INF;
-    row_l[tid] = 0.f;
+  for (int r = tid; r < g; r += NT) {
+    row_m[r] = NEG_INF;
+    row_l[r] = 0.f;
   }
   float acc[2 * PAIRS];
 #pragma unroll
@@ -217,7 +263,7 @@ __global__ void __launch_bounds__(NT) decode_kernel(DecodeArgs a) {
     const int t0 = t_begin + t * BK;
     for (int i = tid; i < g * BK; i += NT) {
       const int r = i / BK, j = i - r * BK;
-      const float* qr = qs + r * hd;
+      const float* qr = qs + r * hdq;
       const unsigned char* kr = ks + j * rb;
       float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;   // four chains
       for (int c = 0; c < vpr; ++c) {
@@ -238,11 +284,11 @@ __global__ void __launch_bounds__(NT) decode_kernel(DecodeArgs a) {
     }
     __syncthreads();
     for (int r = warp; r < g; r += NT / 32) {
-      const float s = ps[r * BK + lane];
+      const float s = lane < BK ? ps[r * BK + lane] : NEG_INF;
       const float m_old = row_m[r];
       const float m_new = fmaxf(m_old, warp_max(s));
-      const float p = expf(s - m_new);
-      ps[r * BK + lane] = p;
+      const float p = lane < BK ? expf(s - m_new) : 0.f;
+      if (lane < BK) ps[r * BK + lane] = p;
       const float sum = warp_sum(p);
       if (lane == 0) {
         const float alpha = expf(m_old - m_new);
@@ -255,8 +301,8 @@ __global__ void __launch_bounds__(NT) decode_kernel(DecodeArgs a) {
 #pragma unroll
     for (int c = 0; c < PAIRS; ++c) {
       const int i = tid + c * NT;               // output pair
-      if (i < g * hd / 2) {
-        const int r = i / (hd / 2), d = 2 * (i - r * (hd / 2));
+      if (i < g * hp2) {
+        const int r = i / hp2, d = 2 * (i - r * hp2);
         const float* pr = ps + r * BK;
         const unsigned char* vc = vs + d * sizeof(T);
         float x0 = 0.f, x1 = 0.f;
@@ -274,45 +320,46 @@ __global__ void __launch_bounds__(NT) decode_kernel(DecodeArgs a) {
     if (t + NSTAGE < n_tiles) issue(t + NSTAGE);
   }
 
+  T* o = static_cast<T*>(a.o);
   if (a.n_split == 1) {
-    T* o = static_cast<T*>(a.o);
 #pragma unroll
     for (int c = 0; c < PAIRS; ++c) {
       const int i = tid + c * NT;
-      if (i < g * hd / 2) {
-        const int r = i / (hd / 2), d = 2 * (i - r * (hd / 2));
+      if (i < g * hp2) {
+        const int r = i / hp2, d = 2 * (i - r * hp2);
         const float l = fmaxf(row_l[r], 1e-30f);
-        T* od = o + b * a.o_sb + (h * g + r) * a.o_sh + d;
+        T* od = o + b * a.o_sb + (qh0 + r) * a.o_sh + d;
         od[0] = from_f<T>(acc[2 * c] / l);
-        od[1] = from_f<T>(acc[2 * c + 1] / l);
+        if (d + 1 < hd) od[1] = from_f<T>(acc[2 * c + 1] / l);
       }
     }
     return;
   }
 
-  // Partials of this split, then a ticket; the last split merges.
-  const long long row0 = (long long)b * a.Hq + h * g;
+  // Partials of this split, then a ticket; the last split merges.  A
+  // partial row holds 2 hp2 values, so its pairs stay 8-byte aligned.
+  const long long row0 = (long long)b * a.Hq + qh0;
+  const int pw = 2 * hp2;
 #pragma unroll
   for (int c = 0; c < PAIRS; ++c) {
     const int i = tid + c * NT;
-    if (i < g * hd / 2) {
-      const int r = i / (hd / 2), d = 2 * (i - r * (hd / 2));
-      float* pa = a.part_acc + ((row0 + r) * a.n_split + split) * hd + d;
-      pa[0] = acc[2 * c];
-      pa[1] = acc[2 * c + 1];
+    if (i < g * hp2) {
+      const int r = i / hp2, d = 2 * (i - r * hp2);
+      float* pa = a.part_acc + ((row0 + r) * a.n_split + split) * pw + d;
+      *reinterpret_cast<float2*>(pa) = make_float2(acc[2 * c], acc[2 * c + 1]);
     }
   }
-  if (tid < g) {
-    float* ml = a.part_ml + ((row0 + tid) * a.n_split + split) * 2;
-    ml[0] = row_m[tid];
-    ml[1] = row_l[tid];
+  for (int r = tid; r < g; r += NT) {
+    float* ml = a.part_ml + ((row0 + r) * a.n_split + split) * 2;
+    ml[0] = row_m[r];
+    ml[1] = row_l[r];
   }
   // The barrier orders every thread's partials before thread 0's
   // gpu-scope fence and ticket (a release, as one thread rather than 128
   // fences); the fence after the ticket makes the last block's reads see
   // every split's partials (an acquire).
   __syncthreads();
-  int* ticket = a.tickets + b * a.Hkv + h;
+  int* ticket = a.tickets + ((long long)b * a.Hkv + h) * a.ngs + slice;
   if (tid == 0) {
     int old;
     asm volatile("fence.acq_rel.gpu;\n"
@@ -325,16 +372,15 @@ __global__ void __launch_bounds__(NT) decode_kernel(DecodeArgs a) {
   if (!last_block) return;
 
   // Merge in one pass (online), the partials read past L1 (__ldcg).
-  T* o = static_cast<T*>(a.o);
-  for (int i = tid; i < g * hd / 2; i += NT) {
-    const int r = i / (hd / 2), d = 2 * (i - r * (hd / 2));
+  for (int i = tid; i < g * hp2; i += NT) {
+    const int r = i / hp2, d = 2 * (i - r * hp2);
     const float* ml = a.part_ml + (row0 + r) * a.n_split * 2;
-    const float* pa = a.part_acc + (row0 + r) * a.n_split * hd + d;
+    const float* pa = a.part_acc + (row0 + r) * a.n_split * pw + d;
     float m = NEG_INF, l = 0.f, x0 = 0.f, x1 = 0.f;
 #pragma unroll 4
     for (int s = 0; s < a.n_split; ++s) {
       const float2 ms = __ldcg(reinterpret_cast<const float2*>(ml + 2 * s));
-      const float2 ps = __ldcg(reinterpret_cast<const float2*>(pa + s * hd));
+      const float2 ps = __ldcg(reinterpret_cast<const float2*>(pa + s * pw));
       const float m_new = fmaxf(m, ms.x);
       const float wo = expf(m - m_new), wn = expf(ms.x - m_new);
       l = l * wo + ms.y * wn;
@@ -343,27 +389,38 @@ __global__ void __launch_bounds__(NT) decode_kernel(DecodeArgs a) {
       m = m_new;
     }
     l = fmaxf(l, 1e-30f);
-    T* od = o + b * a.o_sb + (h * g + r) * a.o_sh + d;
+    T* od = o + b * a.o_sb + (qh0 + r) * a.o_sh + d;
     od[0] = from_f<T>(x0 / l);
-    od[1] = from_f<T>(x1 / l);
+    if (d + 1 < hd) od[1] = from_f<T>(x1 / l);
   }
   if (tid == 0) *ticket = 0;
 }
 
-template <typename T>
-int launch(DecodeArgs a, cudaStream_t stream) {
-  const size_t smem = smem_bytes(a.g, a.hd, sizeof(T));
+template <typename T, int BK, bool ALIGNED>
+int launch_bk(DecodeArgs a, cudaStream_t stream) {
+  const size_t smem = smem_bytes(a.gs, a.hd, sizeof(T), BK);
   // Past 48 KB a launch needs the opt-in, which is per device: set it on
   // the current one to what this call needs (the kernel's static shared
   // memory counts against the same 227 KB).
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        decode_kernel<T, BK, ALIGNED>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  decode_kernel<T><<<dim3(a.B, a.Hkv, a.n_split), NT, smem, stream>>>(a);
+  decode_kernel<T, BK, ALIGNED>
+      <<<dim3(a.B, a.Hkv * a.ngs, a.n_split), NT, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch(DecodeArgs a, int bk, cudaStream_t stream) {
+  if (a.vec) {
+    return bk == 32 ? launch_bk<T, 32, true>(a, stream)
+                    : launch_bk<T, 16, true>(a, stream);
+  }
+  return bk == 32 ? launch_bk<T, 32, false>(a, stream)
+                  : launch_bk<T, 16, false>(a, stream);
 }
 
 }  // namespace
@@ -372,14 +429,17 @@ extern "C" int flash_decode_launch(
     int is_bf16, const void* q, const void* k, const void* v, void* o,
     float* part_acc, float* part_ml, int* tickets, int B, int Hq, int Hkv,
     int T, int hd, const long long* strides, int kv_len, float softcap,
-    int n_split, int tiles_per_split, void* stream) {
-  const int g = Hq / Hkv;
+    int gs, int ngs, int bk, int n_split, int tiles_per_split,
+    void* stream) {
+  const int g = Hkv > 0 ? Hq / Hkv : 0;
   const int item = is_bf16 ? 2 : 4;
-  if (Hq % Hkv != 0 || g * hd > MAX_GHD || hd > 1024 || hd * item % 16 != 0 ||
-      kv_len < 1 || kv_len > T || n_split < 1 ||
-      (long long)(n_split - 1) * tiles_per_split * BK >= kv_len ||
-      (long long)n_split * tiles_per_split * BK < kv_len ||
-      smem_bytes(g, hd, item) > 227 * 1024 ||
+  if (Hkv < 1 || Hq % Hkv != 0 || hd < 1 || hd > 512 || gs < 1 ||
+      gs > NT || gs * 2 * ((hd + 1) / 2) > MAX_GHD ||
+      (long long)(ngs - 1) * gs >= g || (long long)ngs * gs < g ||
+      (bk != 32 && bk != 16) || kv_len < 1 || kv_len > T || n_split < 1 ||
+      (long long)(n_split - 1) * tiles_per_split * bk >= kv_len ||
+      (long long)n_split * tiles_per_split * bk < kv_len ||
+      smem_bytes(gs, hd, item, bk) > 227 * 1024 ||
       (n_split > 1 && (part_acc == nullptr || tickets == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -387,6 +447,7 @@ extern "C" int flash_decode_launch(
   a.q = q; a.k = k; a.v = v; a.o = o;
   a.part_acc = part_acc; a.part_ml = part_ml; a.tickets = tickets;
   a.B = B; a.Hq = Hq; a.Hkv = Hkv; a.T = T; a.hd = hd; a.g = g;
+  a.gs = gs; a.ngs = ngs;
   a.q_sb = strides[0]; a.q_sh = strides[1];
   a.k_sb = strides[2]; a.k_sh = strides[3]; a.k_st = strides[4];
   a.v_sb = strides[5]; a.v_sh = strides[6]; a.v_st = strides[7];
@@ -396,6 +457,10 @@ extern "C" int flash_decode_launch(
   a.scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(hd)));
   a.n_split = n_split;
   a.tiles_per_split = tiles_per_split;
+  a.vec = hd * item % 16 == 0 &&
+          (reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) %
+              16 == 0;
+  for (int i = 2; i < 8; ++i) a.vec = a.vec && strides[i] * item % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<__nv_bfloat16>(a, s) : launch<float>(a, s);
+  return is_bf16 ? launch<__nv_bfloat16>(a, bk, s) : launch<float>(a, bk, s);
 }

@@ -44,7 +44,17 @@
 //     q C runs.  (On an NVIDIA H100 80GB HBM3 at 700 W, 16 warps a block
 //     and 64-deep score tiles both measured slower.)
 //   * A ragged last chunk is masked, not padded: its missing rows count as
-//     f = 1, i = 0, the identity update the TPU wrapper pads with.
+//     f = 1, i = 0, the identity update the TPU wrapper pads with.  A chunk
+//     above 128 (the TPU kernel takes any) runs as chunks of 128: with that
+//     identity padding it is the same function up to floating-point order.
+//   * Any head dim from 1 to 512: the depth is padded to hdp, a multiple of
+//     16, in shared memory only.  q and k are zero past hd in the staged
+//     tiles, the state's rows past hd are zero and stay so (k is zero
+//     there), and a slab's columns past hd (v zero, C zero) are never
+//     stored.  Rows that are not 16-byte aligned (hd % 4 != 0, an odd
+//     stride) take the kernels' other instantiation (VEC false), which
+//     reads them value by value.  At hd 512 the hd x 56 slab of 48
+//     columns does not fit beside the staged tiles, so pick_et takes 32.
 //   * bf16 inputs are converted on load; the state and the math stay fp32.
 // Decode (chunk == 1, step_kernel): the plain recurrence, bound by the
 //   bytes of the state.  Block (batch*head, 32 value columns); each lane
@@ -67,7 +77,7 @@
 namespace {
 
 constexpr int MC = 128;           // largest chunk
-constexpr int MAX_HD = 448;
+constexpr int MAX_HD = 512;
 // scan_kernel
 constexpr int NT = 256;           // 8 warps x 16 rows = MC rows
 constexpr int DTILE = 64;         // depth of a staged q or k tile
@@ -87,7 +97,6 @@ constexpr int STEP_COLS = 32;                 // value columns a block
 constexpr int STEP_LPR = STEP_COLS / 4;       // lanes a row, 4 columns each
 constexpr int STEP_RPW = 32 / STEP_LPR;       // rows a warp holds at once
 constexpr int STEP_RPB = STEP_RPW * STEP_W;   // rows a block holds at once
-constexpr int STEP_ROWS = MAX_HD / STEP_RPB + (MAX_HD % STEP_RPB != 0);
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -122,6 +131,45 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
 }
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
+}
+// Four consecutive values, of which the first n > 0 are read (the rest 0).
+// VEC (every row's vectors aligned, hd % 4 == 0, so n >= 4) reads one
+// vector; otherwise the values are read one by one.
+template <bool VEC, typename T>
+__device__ __forceinline__ float4 load4n(const T* p, int n) {
+  if constexpr (VEC) {
+    return load4(p);
+  } else {
+    float x[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) x[j] = j < n ? to_f(p[j]) : 0.f;
+    return make_float4(x[0], x[1], x[2], x[3]);
+  }
+}
+// The first n > 0 (up to four) values of v at p, as one vector with VEC.
+template <bool VEC>
+__device__ __forceinline__ void store4n(float* p, float4 v, int n) {
+  if constexpr (VEC) {
+    store4(p, v);
+  } else {
+    p[0] = v.x;
+    if (n > 1) p[1] = v.y;
+    if (n > 2) p[2] = v.z;
+    if (n > 3) p[3] = v.w;
+  }
+}
+// Columns e and e + 1 of a row of y, those below `end`: one pair store
+// with VEC (hd even, so the pair is aligned), else one value at a time.
+template <bool VEC, typename T>
+__device__ __forceinline__ void store2n(T* p, float a, float b, int e,
+                                        int end) {
+  if (e >= end) return;
+  if constexpr (VEC) {
+    store2(p, a, b);
+  } else {
+    p[0] = from_f<T>(a);
+    if (e + 1 < end) p[1] = from_f<T>(b);
+  }
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -208,6 +256,9 @@ struct Args {
   float* n_out;           // (B, H, hd) contiguous, may be n0
   float* p;               // (B*H, n_chunks, chunk, ps) score scratch
   int B, S, H, hd, chunk, n_chunks, ps;   // ps: chunk rounded up to 8
+  int hdp;                // hd rounded up to 16: the padded depth
+  int vec;                // hd % 4 == 0, the rows of q, k, v and the
+                          // states 16-byte aligned
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
   long long i_sb, i_ss, i_sh, f_sb, f_ss, f_sh, y_sb, y_ss, y_sh;
   float scale;
@@ -252,7 +303,7 @@ __device__ __forceinline__ void gate_scan(const Args& a, const T* ig,
 // 16 (w % 2) .. + 15 of the block and the key tiles n = w / 2 (mod 4), and
 // skips the tiles past its last row.  The next depth tile's loads are in
 // flight (in registers) while the products of this one run.
-template <typename T>
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(SNT) score_kernel(Args a) {
   constexpr int R4 = SD / 4;                          // float4s a tile row
   constexpr int PRE = (SROWS + MC) * R4 / SNT;        // float4s a thread
@@ -289,11 +340,13 @@ __global__ void __launch_bounds__(SNT) score_kernel(Args a) {
       if (i < SROWS * R4) {
         const int r = i / R4;
         if (r0 + r < cl && c4 < dn) {
-          x = load4(q + (t0 + r0 + r) * a.q_ss + d0 + c4);
+          x = load4n<VEC>(q + (t0 + r0 + r) * a.q_ss + d0 + c4, dn - c4);
         }
       } else {
         const int r = i / R4 - SROWS;
-        if (r < s_end && c4 < dn) x = load4(k + (t0 + r) * a.k_ss + d0 + c4);
+        if (r < s_end && c4 < dn) {
+          x = load4n<VEC>(k + (t0 + r) * a.k_ss + d0 + c4, dn - c4);
+        }
       }
       pre[u] = x;
     }
@@ -313,7 +366,7 @@ __global__ void __launch_bounds__(SNT) score_kernel(Args a) {
     if (d0 + SD < a.hd) fetch(d0 + SD);
     if (ntiles > 0) {
       warp_mma<MC / 8 / PH>(
-          acc, dn / 8, ntiles,
+          acc, (dn + 7) / 8, ntiles,
           [&](int r, int kk) { return qs[(16 * rg + r) * LS + kk]; },
           [&](int kk, int c) {
             return ks[(8 * PH * (c >> 3) + 8 * par + (c & 7)) * LS + kk];
@@ -346,11 +399,12 @@ __global__ void __launch_bounds__(SNT) score_kernel(Args a) {
   }
 }
 
-size_t scan_smem_bytes(int hd, int et) {
+// Dynamic shared memory of scan_kernel at padded depth hdp, slab width et.
+size_t scan_smem_bytes(int hdp, int et) {
   const size_t lc = et + 8;
   return sizeof(float) *
-         (static_cast<size_t>(hd) * lc + MC * lc + MC * LP + UNION + 3 * MC +
-          MAX_HD);
+         (static_cast<size_t>(hdp) * lc + MC * lc + MC * LP + UNION + 3 * MC +
+          hdp);
 }
 
 // Block (batch*head = blockIdx.x, value columns [e0, e0 + ET) with e0 =
@@ -358,19 +412,19 @@ size_t scan_smem_bytes(int hd, int et) {
 // shared memory throughout.  Warp w owns chunk rows 16 w .. 16 w + 15 of y;
 // per DTILE pass of the state update, warps w and w + 4 own state rows
 // d0 + 16 (w % 4) .. + 15, the even and the odd column tiles.
-template <typename T, int ET>
+template <typename T, int ET, bool VEC>
 __global__ void __launch_bounds__(NT, 1) scan_kernel(Args a) {
   constexpr int NTILE = ET / 8, LC = ET + 8, E4 = ET / 4;
   extern __shared__ __align__(16) float smem[];
-  const int hd = a.hd;
-  float* cs = smem;               // hd x LC: this block's columns of C
+  const int hd = a.hd, hdp = a.hdp;
+  float* cs = smem;               // hdp x LC: this block's columns of C
   float* vs = cs + hd * LC;       // MC x LC: v columns, later r * v
   float* pt = vs + MC * LC;       // MC x LP: the chunk's scores P
   float* us = pt + MC * LP;       // the q tile, then the k tile
   float* cum = us + UNION;        // MC: in-chunk cumulative log forget
   float* igs = cum + MC;          // MC: input gates
   float* rs = igs + MC;           // MC: exp(F_c - F_s) i_s
-  float* ns = rs + MC;            // hd: the normalizer (column block 0)
+  float* ns = rs + MC;            // hdp: the normalizer (column block 0)
 
   const int bh = blockIdx.x, b = bh / a.H, h = bh - b * a.H;
   const int e0 = blockIdx.y * ET;
@@ -384,9 +438,11 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(Args a) {
   const T* fg = static_cast<const T*>(a.fg) + b * a.f_sb + h * a.f_sh;
   T* y = static_cast<T*>(a.y) + b * a.y_sb + h * a.y_sh + e0;
   const long long cbase = static_cast<long long>(bh) * hd * hd + e0;
+  const int ew = hd - e0;           // real columns of this slab (may be > ET)
 
-  // A DTILE-deep tile of q or k rows (zero past cl), staged through
-  // registers: fetch() issues the loads, put() stores them at row stride ld.
+  // A DTILE-deep tile of q or k rows (zero past cl and past hd), staged
+  // through registers: fetch() issues the loads, put() stores them at row
+  // stride ld.
   constexpr int R4 = DTILE / 4;                 // float4s a tile row
   constexpr int PRE = MC * R4 / NT;             // float4s a thread
   float4 pre[PRE];
@@ -396,7 +452,9 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(Args a) {
     for (int u = 0; u < PRE; ++u) {
       const int i = tid + u * NT, r = i / R4, c4 = (i % R4) * 4;
       pre[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (r < cl && c4 < dn) pre[u] = load4(src + (t0 + r) * ss + d0 + c4);
+      if (r < cl && c4 < dn) {
+        pre[u] = load4n<VEC>(src + (t0 + r) * ss + d0 + c4, dn - c4);
+      }
     }
   };
   auto put = [&](int ld) {
@@ -407,13 +465,18 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(Args a) {
     }
   };
 
-  for (int i = tid; i < hd * E4; i += NT) {
+  for (int i = tid; i < hdp * E4; i += NT) {
     const int d = i / E4, c4 = (i - d * E4) * 4;
-    store4(cs + d * LC + c4, load4(a.c0 + cbase + static_cast<long long>(d) *
-                                                      hd + c4));
+    store4(cs + d * LC + c4,
+           d < hd && c4 < ew
+               ? load4n<VEC>(a.c0 + cbase + static_cast<long long>(d) * hd +
+                                 c4, ew - c4)
+               : make_float4(0.f, 0.f, 0.f, 0.f));
   }
   if (with_n) {
-    for (int d = tid; d < hd; d += NT) ns[d] = a.n0[bh * hd + d];
+    for (int d = tid; d < hdp; d += NT) {
+      ns[d] = d < hd ? a.n0[bh * hd + d] : 0.f;
+    }
   }
 
   for (int jc = 0, t0 = 0; t0 < a.S; ++jc, t0 += a.chunk) {
@@ -437,12 +500,13 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(Args a) {
     }
     for (int i = tid; i < k8 * E4; i += NT) {
       const int s = i / E4, c4 = (i - s * E4) * 4;
-      if (s >= cl) {
+      if (s >= cl || c4 >= ew) {
         store4(vs + s * LC + c4, make_float4(0.f, 0.f, 0.f, 0.f));
-      } else if constexpr (sizeof(T) == 4) {
+      } else if constexpr (VEC && sizeof(T) == 4) {
         cp_async16(vs + s * LC + c4, v + (t0 + s) * a.v_ss + c4);
       } else {
-        store4(vs + s * LC + c4, load4(v + (t0 + s) * a.v_ss + c4));
+        store4(vs + s * LC + c4,
+               load4n<VEC>(v + (t0 + s) * a.v_ss + c4, ew - c4));
       }
     }
 
@@ -458,7 +522,7 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(Args a) {
       if (d0 + DTILE < hd) fetch(q, a.q_ss, t0, cl, d0 + DTILE);
       if (active) {
         warp_mma<NTILE>(
-            acc, dn / 8, NTILE,
+            acc, (dn + 7) / 8, NTILE,
             [&](int r, int kk) { return us[(row0 + r) * LQ + kk]; },
             [&](int kk, int c) { return cs[(d0 + kk) * LC + c]; });
       }
@@ -487,8 +551,9 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(Args a) {
         for (int half = 0; half < 2; ++half) {
           const int t = row0 + g + 8 * half;
           if (t < cl) {
-            store2(y + (t0 + t) * a.y_ss + 8 * n + 2 * tg, acc[n][2 * half],
-                   acc[n][2 * half + 1]);
+            store2n<VEC>(y + (t0 + t) * a.y_ss + 8 * n + 2 * tg,
+                         acc[n][2 * half], acc[n][2 * half + 1],
+                         8 * n + 2 * tg, ew);
           }
         }
       }
@@ -515,7 +580,7 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(Args a) {
         fetch(q, a.q_ss, t0 + a.chunk, min(a.chunk, a.S - t0 - a.chunk), 0);
       }
       const int srow = 16 * (w & 3), par = w >> 2;
-      if (srow < dn) {
+      if (srow < dn) {    // state rows past hd (k zero there) stay zero
         float u[NTILE / 2][4] = {};
         warp_mma<NTILE / 2>(
             u, k8 / 8, NTILE / 2,
@@ -550,8 +615,11 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(Args a) {
   __syncthreads();
   for (int i = tid; i < hd * E4; i += NT) {
     const int d = i / E4, c4 = (i - d * E4) * 4;
-    store4(a.c_out + cbase + static_cast<long long>(d) * hd + c4,
-           *reinterpret_cast<const float4*>(cs + d * LC + c4));
+    if (c4 < ew) {
+      store4n<VEC>(a.c_out + cbase + static_cast<long long>(d) * hd + c4,
+                   *reinterpret_cast<const float4*>(cs + d * LC + c4),
+                   ew - c4);
+    }
   }
   if (with_n) {
     for (int d = tid; d < hd; d += NT) a.n_out[bh * hd + d] = ns[d];
@@ -561,9 +629,11 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(Args a) {
 // Chunk 1: the recurrence one token at a time.  Block (batch*head =
 // blockIdx.x, value columns blockIdx.y * STEP_COLS ..); lane l of warp w
 // holds columns 4 (l % STEP_LPR) .. + 3 of rows STEP_RPW w + l / STEP_LPR +
-// STEP_RPB j of C.
-template <typename T>
-__global__ void __launch_bounds__(STEP_NT) step_kernel(Args a) {
+// STEP_RPB j of C, j < ROWS (ROWS * STEP_RPB >= hd).
+// The aligned kernel keeps to 128 registers (two blocks an SM); the other
+// may take more, for its value-by-value loads.
+template <typename T, int ROWS, bool VEC>
+__global__ void __launch_bounds__(STEP_NT, VEC ? 2 : 1) step_kernel(Args a) {
   __shared__ float qs[MAX_HD], ks[MAX_HD];
   __shared__ __align__(16) float red[STEP_W][STEP_COLS];
   __shared__ float qk_red[STEP_W];
@@ -583,12 +653,13 @@ __global__ void __launch_bounds__(STEP_NT) step_kernel(Args a) {
   T* y = static_cast<T*>(a.y) + b * a.y_sb + h * a.y_sh;
   const long long cbase = static_cast<long long>(bh) * hd * hd + e;
 
-  float4 c[STEP_ROWS];
+  float4 c[ROWS];
 #pragma unroll
-  for (int j = 0; j < STEP_ROWS; ++j) {
+  for (int j = 0; j < ROWS; ++j) {
     const int d = r0 + STEP_RPB * j;
     c[j] = (live && d < hd)
-               ? load4(a.c0 + cbase + static_cast<long long>(d) * hd)
+               ? load4n<VEC>(a.c0 + cbase + static_cast<long long>(d) * hd,
+                             hd - e)
                : make_float4(0.f, 0.f, 0.f, 0.f);
   }
   float nr[2] = {0.f, 0.f};
@@ -607,13 +678,13 @@ __global__ void __launch_bounds__(STEP_NT) step_kernel(Args a) {
     }
     const float decay = expf(logf(to_f(fg[t * a.f_ss]) + 1e-8f));
     const float iv = to_f(ig[t * a.i_ss]);
-    const float4 vv = live ? load4(v + t * a.v_ss + e)
+    const float4 vv = live ? load4n<VEC>(v + t * a.v_ss + e, hd - e)
                            : make_float4(0.f, 0.f, 0.f, 0.f);
     __syncthreads();
     float4 yp = make_float4(0.f, 0.f, 0.f, 0.f);
     float qk = 0.f;
 #pragma unroll
-    for (int j = 0; j < STEP_ROWS; ++j) {
+    for (int j = 0; j < ROWS; ++j) {
       const int d = r0 + STEP_RPB * j;
       if (d < hd) {
         const float qd = qs[d], kd = ks[d], kv = kd * iv;
@@ -662,10 +733,11 @@ __global__ void __launch_bounds__(STEP_NT) step_kernel(Args a) {
     }
   }
 #pragma unroll
-  for (int j = 0; j < STEP_ROWS; ++j) {
+  for (int j = 0; j < ROWS; ++j) {
     const int d = r0 + STEP_RPB * j;
     if (live && d < hd) {
-      store4(a.c_out + cbase + static_cast<long long>(d) * hd, c[j]);
+      store4n<VEC>(a.c_out + cbase + static_cast<long long>(d) * hd, c[j],
+                   hd - e);
     }
   }
   if (with_n) {
@@ -677,9 +749,10 @@ __global__ void __launch_bounds__(STEP_NT) step_kernel(Args a) {
   }
 }
 
-// The slab width: of the ETs that divide hd, the one whose grid takes the
-// fewest waves times columns (the time of one block is about linear in ET).
-int pick_et(int bh, int hd) {
+// The slab width: of the ETs whose slab fits shared memory, the one whose
+// grid (ceil(hd / ET) slabs a head) takes the fewest waves times columns
+// (the time of one block is about linear in ET).
+int pick_et(int bh, int hd, int hdp) {
   static int sms = 0;
   if (sms == 0) {
     int dev = 0;
@@ -691,8 +764,8 @@ int pick_et(int bh, int hd) {
   long long best_cost = 0;
   const int ets[] = {48, 32, 16};
   for (int et : ets) {
-    if (hd % et || scan_smem_bytes(hd, et) > 227 * 1024) continue;
-    const long long blocks = static_cast<long long>(bh) * (hd / et);
+    if (scan_smem_bytes(hdp, et) > 227 * 1024) continue;
+    const long long blocks = static_cast<long long>(bh) * ((hd + et - 1) / et);
     const long long cost = (blocks + sms - 1) / sms * et;
     if (best == 0 || cost < best_cost) {
       best = et;
@@ -702,37 +775,54 @@ int pick_et(int bh, int hd) {
   return best;
 }
 
-template <typename T, int ET>
+template <typename T, int ET, bool VEC>
 int launch_scan(const Args& a, cudaStream_t stream) {
   static bool opted_in = false;
   if (!opted_in) {
-    cudaFuncSetAttribute(scan_kernel<T, ET>,
+    cudaFuncSetAttribute(scan_kernel<T, ET, VEC>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          227 * 1024);
     opted_in = true;
   }
-  scan_kernel<T, ET><<<dim3(a.B * a.H, a.hd / ET), NT,
-                       scan_smem_bytes(a.hd, ET), stream>>>(a);
+  scan_kernel<T, ET, VEC><<<dim3(a.B * a.H, (a.hd + ET - 1) / ET), NT,
+                            scan_smem_bytes(a.hdp, ET), stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch(const Args& a, cudaStream_t stream) {
+template <typename T, bool VEC>
+int launch_vec(const Args& a, cudaStream_t stream) {
   const int bh = a.B * a.H;
   if (a.chunk == 1) {
-    step_kernel<T><<<dim3(bh, (a.hd + STEP_COLS - 1) / STEP_COLS), STEP_NT,
-                     0, stream>>>(a);
+    const dim3 grid(bh, (a.hd + STEP_COLS - 1) / STEP_COLS);
+    if (a.hd <= 4 * STEP_RPB) {
+      step_kernel<T, 4, VEC><<<grid, STEP_NT, 0, stream>>>(a);
+    } else if (a.hd <= 8 * STEP_RPB) {
+      step_kernel<T, 8, VEC><<<grid, STEP_NT, 0, stream>>>(a);
+    } else if (a.hd <= 12 * STEP_RPB) {
+      step_kernel<T, 12, VEC><<<grid, STEP_NT, 0, stream>>>(a);
+    } else {
+      step_kernel<T, 16, VEC><<<grid, STEP_NT, 0, stream>>>(a);
+    }
     return static_cast<int>(cudaGetLastError());
   }
-  score_kernel<T><<<dim3(bh, a.n_chunks, (a.chunk + SROWS - 1) / SROWS), SNT,
-                    0, stream>>>(a);
+  score_kernel<T, VEC>
+      <<<dim3(bh, a.n_chunks, (a.chunk + SROWS - 1) / SROWS), SNT, 0,
+         stream>>>(a);
   const int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  switch (pick_et(bh, a.hd)) {
-    case 48: return launch_scan<T, 48>(a, stream);
-    case 32: return launch_scan<T, 32>(a, stream);
-    default: return launch_scan<T, 16>(a, stream);
+  switch (pick_et(bh, a.hd, a.hdp)) {
+    case 48: return launch_scan<T, 48, VEC>(a, stream);
+    case 32: return launch_scan<T, 32, VEC>(a, stream);
+    default: return launch_scan<T, 16, VEC>(a, stream);
   }
+}
+
+// The kernels read and write whole 16-byte vectors where every row allows
+// it (VEC), value by value otherwise.
+template <typename T>
+int launch(const Args& a, cudaStream_t stream) {
+  return a.vec ? launch_vec<T, true>(a, stream)
+               : launch_vec<T, false>(a, stream);
 }
 
 }  // namespace
@@ -742,7 +832,8 @@ extern "C" int mlstm_scan_launch(
     const void* fg, const float* c0, void* y, float* c_out, const float* n0,
     float* n_out, float* scores, int B, int S, int H, int hd, int chunk,
     const long long* strides, void* stream) {
-  if (B < 1 || S < 1 || H < 1 || hd < 16 || hd % 16 != 0 || hd > MAX_HD ||
+  static_assert(16 * STEP_RPB >= MAX_HD, "the step kernel holds every row");
+  if (B < 1 || S < 1 || H < 1 || hd < 1 || hd > MAX_HD ||
       chunk < 1 || chunk > MC || (chunk > 1 && scores == nullptr) ||
       (n0 == nullptr) != (n_out == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -752,6 +843,7 @@ extern "C" int mlstm_scan_launch(
   a.c0 = c0; a.y = y; a.c_out = c_out; a.n0 = n0; a.n_out = n_out;
   a.p = scores;
   a.B = B; a.S = S; a.H = H; a.hd = hd; a.chunk = chunk;
+  a.hdp = (hd + 15) / 16 * 16;
   a.n_chunks = (S + chunk - 1) / chunk;
   a.ps = (chunk + 7) & ~7;
   a.q_sb = strides[0]; a.q_ss = strides[1]; a.q_sh = strides[2];
@@ -761,6 +853,12 @@ extern "C" int mlstm_scan_launch(
   a.f_sb = strides[12]; a.f_ss = strides[13]; a.f_sh = strides[14];
   a.y_sb = strides[15]; a.y_ss = strides[16]; a.y_sh = strides[17];
   a.scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(hd)));
+  auto addr = [](const void* ptr) { return reinterpret_cast<uintptr_t>(ptr); };
+  bool vec = hd % 4 == 0 && (addr(q) | addr(k) | addr(v)) % 16 == 0;
+  const long long item = is_bf16 ? 2 : 4;
+  for (int i = 0; i < 9; ++i) vec = vec && strides[i] * item % 16 == 0;
+  a.vec = vec &&
+          (addr(c0) | addr(c_out) | addr(n0) | addr(n_out)) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? launch<__nv_bfloat16>(a, s) : launch<float>(a, s);
 }

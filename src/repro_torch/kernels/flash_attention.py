@@ -4,10 +4,12 @@
 Replaces the Pallas TPU kernel ``repro.kernels.flash_attention.
 flash_attention`` (``src/repro/kernels/flash_attention.py:85``) with the same
 contract: causal with ``q_offset``, sliding window, optional ``kv_len``,
-tanh softcap, GQA.  The kernel is bound by operations (prefill is
-quadratic in the sequence).  bf16 runs both products on the tensor cores
-(``wgmma``, K/V streamed by ``cp.async`` through a 2-stage ring), fp32 on the
-CUDA cores; the design notes are in the CUDA source.
+tanh softcap, GQA, and any head dim up to ``MAX_HD`` (``takes``).  The
+kernel is bound by operations (prefill is quadratic in the sequence).  bf16
+runs both products on the tensor cores (``wgmma``, K/V streamed by
+``cp.async`` through a 2-stage ring), fp32 on the CUDA cores; both pad the
+head dim in shared memory, never in a copy of Q, K or V.  The design notes
+are in the CUDA source.
 
 This wrapper launches the kernel or raises; it never computes on the CPU.
 ``repro_torch.kernels.ops`` sends CPU tensors to the plain version.
@@ -15,14 +17,19 @@ This wrapper launches the kernel or raises; it never computes on the CPU.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from . import _build, refuse_grad
 
 NAME = "flash_attention"
-HEAD_DIMS = (16, 32, 64, 112, 128, 256)   # instantiated in the CUDA source
+MAX_HD = 512        # the widest head dim either kernel takes
 DTYPES = (torch.float32, torch.bfloat16)
+# Padded widths instantiated in the CUDA source, as wgmma_width and
+# fp32_width there pick them: a head dim runs at the first width >= hd.
+WGMMA_WIDTHS = (16, 32, 64, 128, 192, 256, 384, 512)   # bf16, on wgmma
+FP32_WIDTHS = (16, 32, 64, 112, 128, 256, 512)          # fp32, CUDA cores
 
 BLOCK_Q = 64        # query rows per block (one warpgroup in bf16)
 BLOCK_KV = 32       # keys per K/V tile of the bf16 kernel
@@ -31,19 +38,47 @@ launches = 0        # kernel launches since the last reset (see ops)
 _fn = None
 
 
-def tile_width(hd: int) -> int:
-    """Width of the bf16 kernel's tile rows in values, as the CUDA source's
-    ``tile_width``: past 64, whole 128-byte column blocks (hd 112 is laid
-    out at 128, its last two 16-byte chunks zeros)."""
-    return hd if hd <= 64 else -(-hd // 64) * 64
+def takes(hd: int, dtype) -> Optional[str]:
+    """None if the kernels take head dim ``hd`` in ``dtype``, else why not.
+    The one place the contract's limits live: ``_check`` raises with it."""
+    if dtype not in DTYPES:
+        return f"dtype {dtype} is not fp32 or bf16"
+    if not 1 <= hd <= MAX_HD:
+        return f"head_dim {hd} outside [1, MAX_HD = {MAX_HD}]"
+    return None
+
+
+def _first_at_least(widths, hd: int) -> int:
+    return next(w for w in widths if hd <= w)
+
+
+def wgmma_width(hd: int) -> int:
+    """Padded width of the bf16 kernel's tile rows, as the CUDA source's
+    ``wgmma_width``: 16, 32 or 64 up to hd 64 (32-, 64- or 128-byte
+    swizzled rows), then whole 128-byte column blocks (hd 80, 96 and 112
+    run at 128, hd 160 at 192); the padding is zeros."""
+    return _first_at_least(WGMMA_WIDTHS, hd)
+
+
+def fp32_width(hd: int) -> int:
+    """Padded width of the fp32 kernel (``fp32_width`` in the source)."""
+    return _first_at_least(FP32_WIDTHS, hd)
+
+
+def out_width(hp: int) -> int:
+    """Output columns one bf16 block keeps at padded width ``hp``: all of
+    them up to 256, half above (two blocks split a row of O)."""
+    return hp if hp <= 256 else hp // 2
 
 
 def wgmma_smem_bytes(hd: int) -> int:
     """Dynamic shared memory of the bf16 kernel at head dim ``hd``, as the
     CUDA source's ``wgmma_smem_bytes`` reckons it: the Q tile and two stages
-    of K and V tiles, in bf16 at ``tile_width(hd)``, and 1024 bytes to align
-    the swizzled tiles."""
-    return (BLOCK_Q + 4 * BLOCK_KV) * tile_width(hd) * 2 + 1024
+    of K tiles in bf16 at ``wgmma_width(hd)``, two stages of V tiles at the
+    block's ``out_width``, and 1024 bytes to align the swizzled tiles."""
+    hp = wgmma_width(hd)
+    ow = out_width(hp)
+    return (BLOCK_Q * hp + 2 * BLOCK_KV * hp + 2 * BLOCK_KV * ow) * 2 + 1024
 
 
 def _launcher():
@@ -71,18 +106,14 @@ def _check(q, k, v):
     B, Hq, Sq, hd = q.shape
     if k.shape[0] != B or k.shape[3] != hd or Hq % k.shape[1]:
         raise ValueError(f"q{tuple(q.shape)} does not fit k{tuple(k.shape)}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+    why = takes(hd, q.dtype)
+    if why:
+        raise ValueError(why)
     if Sq < 1 or k.shape[2] < 1:
         raise ValueError("empty sequence")
     for t in (q, k, v):
         if t.stride(-1) != 1:
             raise ValueError("last dim must be contiguous (stride 1)")
-    # The bf16 kernel copies Q, K and V rows in 16-byte pieces.
-    if q.dtype == torch.bfloat16:
-        for t in (q, k, v):
-            if t.data_ptr() % 16 or any(st * 2 % 16 for st in t.stride()[:3]):
-                raise ValueError("bf16 Q/K/V rows must be 16-byte aligned")
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("flash_attention kernel needs CUDA tensors; "
                          f"got {q.device}, {k.device}, {v.device}")

@@ -43,46 +43,53 @@ def test_split_plan_covers_every_tile_once(shape, kv_len):
 
 
 def test_flash_attention_smem_fits_every_head_dim():
-    for hd in flash_attention.HEAD_DIMS:
+    for hd in flash_attention.WGMMA_WIDTHS:
         need = flash_attention.wgmma_smem_bytes(hd)
-        # Q, two stages of K and V, all in bf16, fit beside the alignment.
+        # Q, two stages of K, all in bf16, and two stages of the block's
+        # columns of V fit beside the alignment.
+        ow = flash_attention.out_width(hd)
         q_tile = flash_attention.BLOCK_Q * hd * 2
-        kv_stages = 4 * flash_attention.BLOCK_KV * hd * 2
+        kv_stages = 2 * flash_attention.BLOCK_KV * (hd + ow) * 2
         assert q_tile + kv_stages < need <= SMEM_LIMIT, hd
         # Blocks that share an SM: at least four up to hd 128, so the
         # llama and Jamba serving grids (512 blocks) are resident at once;
         # two at hd 256, where gemma2's serving grid (4 q tiles x 8 heads x
-        # batch 4 = 128 blocks) still is, on the H100's 132 SMs.
+        # batch 4 = 128 blocks) still is, on the H100's 132 SMs; at least
+        # one at the widest.
         per_sm = SMEM_LIMIT // need
         if hd <= 128:
             assert per_sm >= 4, hd
-        else:
+        elif hd == 256:
             assert per_sm == 2, hd
             assert 4 * 8 * 4 <= per_sm * 132
+        else:
+            assert per_sm >= 1, hd
 
 
 def test_flash_attention_lays_head_dim_112_out_at_128():
     """A 224-byte bf16 row is not whole 128-byte column blocks: the tiles
     take the padded width of 128, so the shared memory reckoned is hd
-    128's, 50,176 bytes, and every other head dim keeps its own width."""
-    assert flash_attention.tile_width(112) == 128
+    128's, 50,176 bytes, and every instantiated width keeps its own."""
+    assert flash_attention.wgmma_width(112) == 128
     assert flash_attention.wgmma_smem_bytes(112) == \
         flash_attention.wgmma_smem_bytes(128) == 50_176
-    for hd in set(flash_attention.HEAD_DIMS) - {112}:
-        assert flash_attention.tile_width(hd) == hd
-        assert flash_attention.tile_width(hd) * 2 % min(hd * 2, 128) == 0
+    for hd in flash_attention.WGMMA_WIDTHS:
+        assert flash_attention.wgmma_width(hd) == hd
+        assert flash_attention.wgmma_width(hd) * 2 % min(hd * 2, 128) == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_decode_smem_fits_every_group(dtype):
     item = torch.finfo(dtype).bits // 8
-    for hd in (16, 32, 64, 112, 128, 256):
-        if hd * item % 16:
-            continue
-        for g in (1, 2, 4, 8, 16):
-            if g * hd > decode_attention.MAX_GROUP_HD:
-                continue
-            assert decode_attention.smem_bytes(g, hd, item) <= SMEM_LIMIT
+    for hd in (16, 32, 64, 80, 96, 112, 128, 256, 320, 512):
+        for g in (1, 2, 4, 8, 16, 24, 48, 71):
+            # The group runs as slices whose outputs fit one block.
+            gs, slices = decode_attention.group_slices(g, hd)
+            assert gs * slices >= g
+            assert gs * hd <= decode_attention.MAX_GROUP_HD
+            p = decode_attention.plan(4, g, 1, hd, 512, item)
+            assert decode_attention.smem_bytes(
+                gs, hd, item, p.block_kv) == p.smem <= SMEM_LIMIT
 
 
 def _qkv(dtype, Sq=8, Skv=64, hd=64):
@@ -108,13 +115,14 @@ def test_wrappers_refuse_cpu_tensors_and_bad_inputs(kernel):
     with pytest.raises(ValueError, match="dtypes"):
         call(q, k, v.float())
     # K/V rows 136 bytes apart, and K/V starting 2 bytes past 16-byte
-    # alignment: the kernels copy rows in 16-byte pieces.
+    # alignment: the kernels read such rows with narrower loads, so the
+    # wrappers take them (and refuse only the CPU tensors).
     wide = torch.zeros((1, 2, 64, 68), dtype=torch.bfloat16)[..., :64]
-    with pytest.raises(ValueError, match="aligned"):
+    with pytest.raises(ValueError, match="CUDA"):
         call(q, wide, wide)
     flat = torch.zeros(2 * 64 * 64 + 1, dtype=torch.bfloat16)
     shifted = flat[1:].view(1, 2, 64, 64)
-    with pytest.raises(ValueError, match="aligned"):
+    with pytest.raises(ValueError, match="CUDA"):
         call(q, shifted, shifted)
     with pytest.raises(ValueError, match="stride 1"):
         call(q, k.transpose(2, 3), v.transpose(2, 3))

@@ -295,25 +295,55 @@ def test_flash_decode_repeats_bitwise(cuda):
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
-    for hd in (48, 96):                  # head dims no kernel instantiates
-        q = torch.zeros((1, 4, 8, hd), device=cuda)
-        with pytest.raises(ValueError, match="head_dim"):
-            ops.flash_attention(q, q, q)
+    """The shapes the kernels once refused (hd 48 and 96 in attention, hd
+    40 in the mLSTM, N = 12 at di 32 in the selective scan) now run, each
+    with one launch; what is refused is the contracts' limits (hd 513, N
+    257), a dtype, a kv_len and a DTensor."""
+    for hd in (48, 96):
+        q = torch.randn((1, 4, 8, hd), device=cuda)
+        ops.reset_launch_counts()
+        torch.testing.assert_close(ops.flash_attention(q, q, q),
+                                   ref.attention_ref(q, q, q),
+                                   rtol=TOL["float32"], atol=TOL["float32"])
+        assert ops.launch_counts()["flash_attention"] == 1
+    x = torch.randn((1, 8, 2, 40), device=cuda)            # head_dim 40
+    g = torch.sigmoid(torch.randn((1, 8, 2), device=cuda))
+    c0 = torch.zeros((1, 2, 40, 40), device=cuda)
+    ops.reset_launch_counts()
+    y, _ = ops.mlstm(x, x, x, g, g, c0)
+    assert ops.launch_counts()["mlstm_scan"] == 1
+    torch.testing.assert_close(
+        y, ref.mlstm_ref(x, x, x, g, g, c0, c0[..., 0])[0],
+        rtol=TOL["float32"], atol=TOL["float32"])
+    u = torch.randn((1, 8, 32), device=cuda)
+    bc = torch.randn((1, 8, 12), device=cuda)                # N = 12
+    a = -torch.ones((32, 12), device=cuda)
+    h0 = torch.zeros((1, 32, 12), device=cuda)
+    ops.reset_launch_counts()
+    y, _ = ops.selective_scan(u, u.abs(), a, bc, bc, h0)
+    assert ops.launch_counts()["mamba_scan"] == 1
+    torch.testing.assert_close(
+        y, ref.mamba_scan_ref(u, u.abs(), a, bc, bc, h0)[0],
+        rtol=TOL["float32"], atol=TOL["float32"])
+
+    q = torch.zeros((1, 4, 8, 513), device=cuda)
+    with pytest.raises(ValueError, match="MAX_HD"):
+        ops.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="MAX_HD"):
+        ops.flash_decode(q[:, :, :1], q, q, 1)
+    x = torch.zeros((1, 8, 2, 513), device=cuda)
+    with pytest.raises(ValueError, match="MAX_HD"):
+        ops.mlstm(x, x, x, g, g, torch.zeros((1, 2, 513, 513), device=cuda))
+    bc = torch.zeros((1, 8, 257), device=cuda)
+    with pytest.raises(ValueError, match="MAX_N"):
+        ops.selective_scan(u, u, torch.zeros((32, 257), device=cuda), bc, bc,
+                           torch.zeros((1, 32, 257), device=cuda))
     q = torch.zeros((1, 4, 1, 64), device=cuda, dtype=torch.float16)
     with pytest.raises(ValueError, match="dtypes"):
         ops.flash_decode(q, q, q, 1)
     q = torch.zeros((1, 4, 1, 64), device=cuda)
     with pytest.raises(ValueError, match="kv_len"):
         ops.flash_decode(q, q, q, 2)
-    x = torch.zeros((1, 8, 2, 40), device=cuda)           # head_dim 40
-    g = torch.zeros((1, 8, 2), device=cuda)
-    with pytest.raises(ValueError, match="head_dim"):
-        ops.mlstm(x, x, x, g, g, torch.zeros((1, 2, 40, 40), device=cuda))
-    u = torch.zeros((1, 8, 32), device=cuda)
-    bc = torch.zeros((1, 8, 12), device=cuda)                # N = 12
-    with pytest.raises(ValueError, match="state size"):
-        ops.selective_scan(u, u, torch.zeros((32, 12), device=cuda), bc, bc,
-                           torch.zeros((1, 32, 12), device=cuda))
 
 
 # ---------------------------------------------------------------------------
@@ -380,9 +410,9 @@ def test_mlstm_scan_serving_shapes(S, dtype, cuda):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_mlstm_scan_widest_head(dtype, cuda):
-    """hd 448, the widest the wrapper takes: the 48-column slab no longer
-    fits shared memory, so the scan kernel takes 32 columns; a ragged
-    second chunk, then one decode step from the carried state."""
+    """hd 448: the 48-column slab no longer fits shared memory, so the
+    scan kernel takes 32 columns; a ragged second chunk, then one decode
+    step from the carried state."""
     B, S, H, hd = 1, 150, 2, 448
     inp = mlstm_inputs(155, B, S, H, hd, dtype, cuda, k_scale=hd ** -0.5)
     c0 = randn(156, (B, H, hd, hd), "float32", cuda) * 0.1
@@ -445,16 +475,18 @@ def test_scan_wrappers_refuse_what_the_redesigned_kernels_do_not_take(cuda):
         ops.mlstm(x, x, x, g, g, c0, n_out=n0)
     with pytest.raises(ValueError, match="n0 and n_out must be"):
         ops.mlstm(x, x, x, g, g, c0, n0=n0[..., :16])
+    # Rows 4 bytes past 16-byte alignment and di = 96 (not a multiple of
+    # 64) are taken now: the kernels read such rows with narrower loads
+    # and predicate the channel tail.
     odd = torch.zeros(1 + x.numel(), device=cuda)[1:].view(x.shape)
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        ops.mlstm(odd, x, x, g, g, c0)
-    u = torch.zeros((1, 8, 96), device=cuda)                 # di = 96
+    ops.reset_launch_counts()
+    y, _ = ops.mlstm(odd, x, x, g, g, c0)
+    assert ops.launch_counts()["mlstm_scan"] == 1 and not y.any()
     bc = torch.zeros((1, 8, 16), device=cuda)
-    with pytest.raises(ValueError, match="multiple of 64"):
-        ops.selective_scan(u, u, torch.zeros((96, 16), device=cuda), bc, bc,
-                           torch.zeros((1, 96, 16), device=cuda))
-    u = torch.zeros((1, 8, 64), device=cuda)
-    odd = torch.zeros(1 + u.numel(), device=cuda)[1:].view(u.shape)
-    with pytest.raises(ValueError, match="aligned"):
-        ops.selective_scan(odd, u, torch.zeros((64, 16), device=cuda), bc,
-                           bc, torch.zeros((1, 64, 16), device=cuda))
+    for u in (torch.zeros((1, 8, 96), device=cuda),
+              torch.zeros(1 + 8 * 64, device=cuda)[1:].view(1, 8, 64)):
+        di = u.shape[-1]
+        y, h = ops.selective_scan(u, u, torch.zeros((di, 16), device=cuda),
+                                  bc, bc, torch.zeros((1, di, 16),
+                                                      device=cuda))
+        assert y.shape == u.shape and not y.any() and not h.any()

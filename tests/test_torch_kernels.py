@@ -30,6 +30,17 @@ TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # on-card checks of chip_smoke.py.
 from chip_smoke import ATTN_SWEEP, DECODE_SWEEP  # noqa: E402
 
+# The sweeps' first cases (the repo's and the served models' head dims);
+# the cases after them take the head dims and groups of the widened
+# kernels.  Of those, the CPU holds the plain version against the Pallas
+# kernels at the ones below (hd 1, 96, 100, 320 and 512; hd 37, hd 512 at g
+# 8, and g 24 and 71 past the old g·hd of 2,048); the card runs them all.
+REPO_ATTN, REPO_DECODE = ATTN_SWEEP[:16], DECODE_SWEEP[:14]
+WIDE_ATTN = [c for c in ATTN_SWEEP[16:] if c[5] in (1, 96, 100, 320, 512)]
+WIDE_DECODE = [c for c in DECODE_SWEEP[14:]
+               if (c[4], c[1] // c[2]) in {(37, 2), (512, 8), (128, 24),
+                                           (64, 71)}]
+
 
 def pair(seed, shape, dtype):
     """The same numbers as a jax array and a CPU torch tensor."""
@@ -59,7 +70,7 @@ def decode_inputs(case, dtype):
 # Plain version vs the JAX oracle
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", ATTN_SWEEP)
+@pytest.mark.parametrize("case", REPO_ATTN)
 def test_attention_ref_matches_jax(case, dtype):
     causal, window, cap = case[6:]
     (jq, q), (jk, k), (jv, v) = attn_inputs(case, dtype)
@@ -81,7 +92,7 @@ def test_attention_ref_q_offset_matches_jax():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", DECODE_SWEEP)
+@pytest.mark.parametrize("case", REPO_DECODE)
 def test_decode_ref_matches_jax(case, dtype):
     kv_len, cap = case[5:]
     (jq, q), (jk, k), (jv, v) = decode_inputs(case, dtype)
@@ -96,7 +107,7 @@ def test_decode_ref_matches_jax(case, dtype):
 # ops entry points (CPU tensors) vs the Pallas kernels in interpret mode
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("case", [ATTN_SWEEP[1], ATTN_SWEEP[3],
-                                  ATTN_SWEEP[6]])
+                                  ATTN_SWEEP[6]] + WIDE_ATTN)
 def test_ops_flash_attention_matches_pallas(case):
     causal, window, cap = case[6:]
     (jq, q), (jk, k), (jv, v) = attn_inputs(case, "float32")
@@ -109,7 +120,7 @@ def test_ops_flash_attention_matches_pallas(case):
 
 
 @pytest.mark.parametrize("case", [DECODE_SWEEP[1], DECODE_SWEEP[2],
-                                  DECODE_SWEEP[5]])
+                                  DECODE_SWEEP[5]] + WIDE_DECODE)
 def test_ops_flash_decode_matches_pallas(case):
     kv_len, cap = case[5:]
     (jq, q), (jk, k), (jv, v) = decode_inputs(case, "float32")

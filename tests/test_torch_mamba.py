@@ -35,6 +35,14 @@ TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # The sweep of tests/test_kernels.py:107-112, shared with chip_smoke.py.
 from chip_smoke import MAMBA_SWEEP  # noqa: E402
 
+# The sweep's first three cases are the repo's; the cases after them take
+# the widened kernel's state sizes and channel counts.  Of those, the CPU
+# holds the plain version against the Pallas kernel at N 1, 12 and 256 and
+# at di 37 (fp32); the card runs them all in both dtypes.
+REPO_MAMBA = MAMBA_SWEEP[:3]
+WIDE_MAMBA = [c for c in MAMBA_SWEEP[3:] if c[3] in (1, 12, 256)
+              or c[2] == 37]
+
 
 def pair(x, dtype):
     """The same numbers as a jax array and a CPU torch tensor."""
@@ -66,7 +74,7 @@ def close(got, want, **tol):
 # Plain version vs the JAX oracle
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", MAMBA_SWEEP)
+@pytest.mark.parametrize("case", REPO_MAMBA)
 def test_mamba_scan_ref_matches_jax(case, dtype):
     B, S, di, N, _ = case
     ((ju, u), (jdt, dt)), (ja, a), ((jb, b), (jc, c)), (jh0, h0) = inputs(
@@ -83,7 +91,7 @@ def test_mamba_scan_ref_matches_jax(case, dtype):
 # ops.selective_scan (CPU tensors) vs the Pallas kernel in interpret mode
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", MAMBA_SWEEP)
+@pytest.mark.parametrize("case", REPO_MAMBA)
 def test_ops_selective_scan_matches_pallas(case, dtype):
     B, S, di, N, chunk = case
     ((ju, u), (jdt, dt)), (ja, a), ((jb, b), (jc, c)), (jh0, h0) = inputs(
@@ -95,6 +103,11 @@ def test_ops_selective_scan_matches_pallas(case, dtype):
     assert h.dtype == torch.float32 and h.shape == (B, di, N)
     close(y, jy, **TOL[dtype])
     close(h, jh, **H_TOL)
+
+
+@pytest.mark.parametrize("case", WIDE_MAMBA)
+def test_ops_selective_scan_matches_pallas_at_any_state_size(case):
+    test_ops_selective_scan_matches_pallas(case, "float32")
 
 
 def test_ops_selective_scan_jamba_width_slice():

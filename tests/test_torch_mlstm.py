@@ -33,6 +33,14 @@ TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # The sweep of tests/test_kernels.py:157-162, shared with chip_smoke.py.
 from chip_smoke import MLSTM_SWEEP  # noqa: E402
 
+# The sweep's first three cases are the repo's; the cases after them take
+# the widened kernels' head dims and chunks.  Of those, the CPU holds the
+# plain version against the Pallas kernel at hd 8, 37, 100 and 512 and at
+# chunk 256 (fp32); the card runs them all in both dtypes.
+REPO_MLSTM = MLSTM_SWEEP[:3]
+WIDE_MLSTM = [c for c in MLSTM_SWEEP[3:] if c[3] in (8, 37, 100, 512)
+              or c[4] > 128]
+
 
 def pair(x, dtype):
     """The same numbers as a jax array and a CPU torch tensor."""
@@ -63,7 +71,7 @@ def close(got, want, **tol):
 # Plain version vs the JAX oracle
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", MLSTM_SWEEP)
+@pytest.mark.parametrize("case", REPO_MLSTM)
 def test_mlstm_ref_matches_jax(case, dtype):
     B, S, H, hd, _ = case
     pairs, (jc0, c0), (jn0, n0) = inputs(B, S, H, hd, dtype, c0_scale=0.3)
@@ -80,7 +88,7 @@ def test_mlstm_ref_matches_jax(case, dtype):
 # ops.mlstm (CPU tensors) vs the Pallas kernel in interpret mode
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", MLSTM_SWEEP)
+@pytest.mark.parametrize("case", REPO_MLSTM)
 def test_ops_mlstm_matches_pallas(case, dtype):
     B, S, H, hd, chunk = case
     pairs, (jc0, c0), _ = inputs(B, S, H, hd, dtype)
@@ -92,6 +100,11 @@ def test_ops_mlstm_matches_pallas(case, dtype):
     assert c_last.dtype == torch.float32 and c_last.shape == (B, H, hd, hd)
     close(y, jy, **TOL[dtype])
     close(c_last, jc, **C_TOL)
+
+
+@pytest.mark.parametrize("case", WIDE_MLSTM)
+def test_ops_mlstm_matches_pallas_at_any_head_dim(case):
+    test_ops_mlstm_matches_pallas(case, "float32")
 
 
 def test_ops_mlstm_full_width_head_matches_pallas():
@@ -143,7 +156,7 @@ def test_state_carries_across_two_calls(in_place):
 # The normalizer: ops.mlstm(..., n0=...) against the JAX oracle's n
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", MLSTM_SWEEP)
+@pytest.mark.parametrize("case", REPO_MLSTM)
 def test_ops_mlstm_normalizer_matches_jax(case, dtype):
     """With ``n0``, ``ops.mlstm`` also returns n_last (C's update with
     v = 1), as ``repro.kernels.ref.mlstm_ref`` carries it; y and C are
