@@ -12,21 +12,26 @@ torch.profiler.
 Serves the same wave as chip_smoke.py (4 requests, 256-token prompts, 32
 new tokens, bf16, random weights from seed 0), then profiles a second wave
 and prints one JSON line: wall ms, device-busy ms (the union of kernel
-intervals), the device's idle share, and the kernels with the most device
-time.  The profiler's table goes to ``DIR/serve_profile.txt``.
+intervals), the device's idle share, the kernels with the most device
+time, and the device ms under each of the model's spans
+(``span_device_ms``; ``repro_torch.obs``).  The profiler's table goes to
+``DIR/serve_profile.txt``, its Chrome trace to ``DIR/serve_trace.json``.
 
 With ``--train`` it profiles instead one training step as
 ``launch.train`` runs it at full width: fp32 parameters and AdamW moments,
 batch 1 x 4,096 tokens of the synthetic stream, remat "full" (one warm-up
-step first); the table goes to ``DIR/train_profile.txt``.
+step first); the table and trace go to ``DIR/train_profile.txt`` and
+``DIR/train_trace.json``.
 """
 from __future__ import annotations
 
 import argparse
+import bisect
 import dataclasses
 import json
 import time
 from pathlib import Path
+from typing import Dict, Iterable
 
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -52,6 +57,43 @@ def _busy_ms(events) -> float:
             busy += e - end
             end = e
     return busy / 1e3            # profiler times are in us
+
+
+DEVICE_CATS = {"kernel", "gpu_memcpy", "gpu_memset"}
+LAUNCH_CATS = {"cuda_runtime", "cuda_driver"}
+
+
+def span_device_ms(events: Iterable[dict]) -> Dict[str, float]:
+    """{span name: device ms} from a Chrome trace's events: each device op
+    (kernel, copy, memset) counts under the innermost ``repro_torch.*``
+    span whose host interval holds its launch (tied by the correlation
+    id), or under "(none)" when no span holds it."""
+    spans, launches, ops = [], {}, []
+    for e in events:
+        if e.get("ph") != "X" or "dur" not in e:
+            continue
+        cat, corr = e.get("cat", ""), (e.get("args") or {}).get("correlation")
+        ts, dur = float(e["ts"]), float(e["dur"])
+        if cat == "user_annotation" and e["name"].startswith("repro_torch."):
+            spans.append((ts, ts + dur, e["name"]))
+        elif cat in LAUNCH_CATS and corr is not None:
+            launches[corr] = ts
+        elif cat in DEVICE_CATS:
+            ops.append((corr, dur))
+    spans.sort()
+    starts = [s for s, _, _ in spans]
+    out: Dict[str, float] = {}
+    for corr, dur in ops:
+        t = launches.get(corr)
+        name = "(none)"
+        if t is not None:
+            # The latest-started span that still holds t is the innermost.
+            for s, e, n in reversed(spans[:bisect.bisect_right(starts, t)]):
+                if t <= e:
+                    name = n
+                    break
+        out[name] = out.get(name, 0.0) + dur / 1e3
+    return out
 
 
 def main(argv=None):
@@ -108,8 +150,13 @@ def main(argv=None):
                                       row_limit=40)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    (out / ("train_profile.txt" if args.train
-            else "serve_profile.txt")).write_text(table)
+    what = "train" if args.train else "serve"
+    (out / f"{what}_profile.txt").write_text(table)
+    trace = out / f"{what}_trace.json"
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text())
+    if isinstance(events, dict):
+        events = events.get("traceEvents", [])
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + \
@@ -121,7 +168,8 @@ def main(argv=None):
         "n_layers": cfg.n_layers, "wall_ms": wall_ms,
         "device_busy_ms": busy, "idle_share": 1 - busy / wall_ms,
         "kernel_launches": len(kernels),
-        "top_kernels_ms": [[n[:80], ms] for n, ms in top]}))
+        "top_kernels_ms": [[n[:80], ms] for n, ms in top],
+        "span_device_ms": span_device_ms(events)}))
 
 
 if __name__ == "__main__":

@@ -46,6 +46,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from .. import obs
 from ..kernels import ops
 from ..launch.sharding import (constrain, current_rules, from_local, frozen,
                                is_dtensor, shard_offsets)
@@ -652,15 +653,19 @@ def ffn_specs(cfg: ModelConfig, is_moe: bool) -> Dict[str, Any]:
     return s
 
 
-def ffn_apply(cfg: ModelConfig, p: Mapping[str, Any], x, is_moe: bool):
-    """Returns (out, aux): the router's aux loss for an MoE layer, else 0."""
-    h = rms_norm(x, p["ln"], cfg.norm_eps)
-    if is_moe:
-        out, aux = moe_apply(cfg, p["moe"], h)
-    else:
-        out, aux = swiglu(h, p["w_gate"], p["w_up"], p["w_down"]), 0.0
-    if cfg.post_norm:
-        out = rms_norm(out, p["post_ln"], cfg.norm_eps)
+def ffn_apply(cfg: ModelConfig, p: Mapping[str, Any], x, is_moe: bool,
+              layer: int = -1):
+    """Returns (out, aux): the router's aux loss for an MoE layer, else 0.
+    A dense FFN runs in the span ``repro_torch.ffn``, an MoE's in
+    ``moe_apply``'s ``repro_torch.moe``."""
+    with obs.OFF if is_moe else obs.span("ffn", layer=layer):
+        h = rms_norm(x, p["ln"], cfg.norm_eps)
+        if is_moe:
+            out, aux = moe_apply(cfg, p["moe"], h, layer=layer)
+        else:
+            out, aux = swiglu(h, p["w_gate"], p["w_up"], p["w_down"]), 0.0
+        if cfg.post_norm:
+            out = rms_norm(out, p["post_ln"], cfg.norm_eps)
     return out, aux
 
 
@@ -689,13 +694,16 @@ def layer_specs(cfg: ModelConfig, layer_idx: int) -> Dict[str, Any]:
 
 
 def layer_apply(cfg: ModelConfig, kind: str, is_moe: bool, params, x,
-                ctx: Ctx):
-    """One full layer: mixer + optional FFN, with residuals."""
-    mix_out, cache = mixer(kind)[1](cfg, params["mixer"], x, ctx)
+                ctx: Ctx, layer: int = -1):
+    """One full layer: mixer + optional FFN, with residuals.  The mixer
+    runs in the span of its kind (``repro_torch.attn`` for both attention
+    kinds), ``layer`` its index."""
+    with obs.span("attn" if kind in ATTN_KINDS else kind, layer=layer):
+        mix_out, cache = mixer(kind)[1](cfg, params["mixer"], x, ctx)
     x = x + _scaled(mix_out, cfg.residual_scale)
     aux = 0.0
     if "ffn" in params:
-        ffn_out, aux = ffn_apply(cfg, params["ffn"], x, is_moe)
+        ffn_out, aux = ffn_apply(cfg, params["ffn"], x, is_moe, layer)
         x = x + _scaled(ffn_out, cfg.residual_scale)
     # "seq" maps to the TP axis only under the sp profile.
     return constrain(x, ("batch", "seq", None)), cache, aux

@@ -39,6 +39,7 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from .. import obs
 from ..device import resolve
 from ..launch.sharding import (Rules, constrain, current_rules, frozen,
                                from_local, is_dtensor, place, shard_offsets)
@@ -142,21 +143,22 @@ class LM(nn.Module):
         the projection, as in the JAX package."""
         mode = self.cfg.input_mode
         emb = self.embed
-        batch = {k: place(t, ("batch",) + (None,) * (t.ndim - 1), emb)
-                 for k, t in batch.items()}
-        if mode == "tokens":
-            x = _lookup(emb, batch["tokens"])
-        elif mode == "embeds":
-            x = dense(batch["frame_embeds"].to(emb.dtype),
-                      self.frontend_proj)
-        else:
-            x = _lookup(emb, batch["tokens"])
-            if batch["patch_embeds"].shape[1]:      # none in decode
-                patches = dense(batch["patch_embeds"].to(emb.dtype),
-                                self.frontend_proj)
-                x = torch.cat([patches, x], dim=1)
-        x = x * torch.tensor(self.cfg.embed_scale, dtype=x.dtype)
-        return constrain(x, ("batch", None, None))
+        with obs.span("embed"):
+            batch = {k: place(t, ("batch",) + (None,) * (t.ndim - 1), emb)
+                     for k, t in batch.items()}
+            if mode == "tokens":
+                x = _lookup(emb, batch["tokens"])
+            elif mode == "embeds":
+                x = dense(batch["frame_embeds"].to(emb.dtype),
+                          self.frontend_proj)
+            else:
+                x = _lookup(emb, batch["tokens"])
+                if batch["patch_embeds"].shape[1]:      # none in decode
+                    patches = dense(batch["patch_embeds"].to(emb.dtype),
+                                    self.frontend_proj)
+                    x = torch.cat([patches, x], dim=1)
+            x = x * torch.tensor(self.cfg.embed_scale, dtype=x.dtype)
+            return constrain(x, ("batch", None, None))
 
     def positions(self, batch: Dict[str, torch.Tensor], B: int,
                   S: int) -> torch.Tensor:
@@ -194,17 +196,19 @@ class LM(nn.Module):
 
     def _head(self, x):
         cfg = self.cfg
-        x = rms_norm(x, self.final_ln, cfg.norm_eps)
-        if cfg.tie_embeddings:
-            # Not ``x @ embed.t()``: a view of a DTensor parameter fails
-            # under inference_mode.
-            logits = rows_product(torch.nn.functional.linear, x,
-                                  frozen(self.embed))
-        else:
-            logits = dense(x, self.unembed)
-        logits = logits / torch.tensor(cfg.logit_divisor, dtype=logits.dtype)
-        return constrain(softcap(logits, cfg.final_softcap),
-                         ("batch", None, "model"))
+        with obs.span("head"):
+            x = rms_norm(x, self.final_ln, cfg.norm_eps)
+            if cfg.tie_embeddings:
+                # Not ``x @ embed.t()``: a view of a DTensor parameter fails
+                # under inference_mode.
+                logits = rows_product(torch.nn.functional.linear, x,
+                                      frozen(self.embed))
+            else:
+                logits = dense(x, self.unembed)
+            logits = logits / torch.tensor(cfg.logit_divisor,
+                                           dtype=logits.dtype)
+            return constrain(softcap(logits, cfg.final_softcap),
+                             ("batch", None, "model"))
 
     # -- entry points ---------------------------------------------------------
     def forward(self, batch: Dict[str, torch.Tensor], *, remat: str = "none",
@@ -214,21 +218,22 @@ class LM(nn.Module):
         (``_remat_wrap``); ``plain=True`` takes the plain path whatever
         ``plain_kernels`` says (training does)."""
         cfg = self.cfg
-        x = self.embed_inputs(batch)
-        B, S, _ = x.shape
-        positions = self.positions(batch, B, S)
-        x, aux = self.run_layers(x, mode="train", positions=positions,
-                                 remat=remat, plain=plain)
-        logits = self._head(x)
-        # Shift: predict token t+1 at position t; ignore label < 0.
-        lg = logits[:, :-1].float()
-        lb = place(batch["labels"], ("batch", None), logits)[:, 1:].long()
-        mask = (lb >= 0).float()
-        logz, gold = _nll_terms(lg, lb)
-        nll = (logz - gold) * mask
-        loss = nll.sum() / mask.sum().clamp_min(1.0)
-        if isinstance(aux, torch.Tensor) or aux:
-            loss = loss + cfg.router_aux_coef * aux / max(1, cfg.n_layers)
+        with obs.step("forward", **_step_attrs(batch, 0)):
+            x = self.embed_inputs(batch)
+            B, S, _ = x.shape
+            positions = self.positions(batch, B, S)
+            x, aux = self.run_layers(x, mode="train", positions=positions,
+                                     remat=remat, plain=plain)
+            logits = self._head(x)
+            # Shift: predict token t+1 at position t; ignore label < 0.
+            lg = logits[:, :-1].float()
+            lb = place(batch["labels"], ("batch", None), logits)[:, 1:].long()
+            mask = (lb >= 0).float()
+            logz, gold = _nll_terms(lg, lb)
+            nll = (logz - gold) * mask
+            loss = nll.sum() / mask.sum().clamp_min(1.0)
+            if isinstance(aux, torch.Tensor) or aux:
+                loss = loss + cfg.router_aux_coef * aux / max(1, cfg.n_layers)
         return loss, logits
 
     @torch.inference_mode()
@@ -236,30 +241,39 @@ class LM(nn.Module):
         """Process the prompt; return (last-position logits, cache, next_pos).
         The cache is ``init_cache`` in the activations' dtype (recurrent
         states in fp32), filled up to the prompt length and zero past it."""
-        x = self.embed_inputs(batch)
-        B, S, _ = x.shape
-        cache = init_cache(self.cfg, B, max_len, dtype=x.dtype,
-                           device=x.device,
-                           rules=_rules_of(x))
-        positions = self.positions(batch, B, S)
-        x, _ = self.run_layers(x, mode="prefill", positions=positions,
-                               cache=cache, max_len=max_len)
-        return self._head(x[:, -1:]), cache, S
+        with obs.step("prefill", **_step_attrs(batch, 0)):
+            x = self.embed_inputs(batch)
+            B, S, _ = x.shape
+            cache = init_cache(self.cfg, B, max_len, dtype=x.dtype,
+                               device=x.device,
+                               rules=_rules_of(x))
+            positions = self.positions(batch, B, S)
+            x, _ = self.run_layers(x, mode="prefill", positions=positions,
+                                   cache=cache, max_len=max_len)
+            return self._head(x[:, -1:]), cache, S
 
     @torch.inference_mode()
     def decode_step(self, batch: Dict[str, torch.Tensor], cache, pos: int):
         """One decode step at absolute position ``pos``; the cache is written
         in place and returned."""
-        x = self.embed_inputs(batch)
-        B, S, _ = x.shape
-        shape = (3, B, S) if self.cfg.mrope else (B, S)
-        positions = place(torch.full(shape, int(pos), dtype=torch.int32,
-                                     device=x.device),
-                          ((None,) if self.cfg.mrope else ()) +
-                          ("batch", None), x)
-        x, _ = self.run_layers(x, mode="decode", positions=positions,
-                               cache=cache, pos_offset=int(pos))
-        return self._head(x), cache
+        with obs.step("decode_step", **_step_attrs(batch, pos)):
+            x = self.embed_inputs(batch)
+            B, S, _ = x.shape
+            shape = (3, B, S) if self.cfg.mrope else (B, S)
+            positions = place(torch.full(shape, int(pos), dtype=torch.int32,
+                                         device=x.device),
+                              ((None,) if self.cfg.mrope else ()) +
+                              ("batch", None), x)
+            x, _ = self.run_layers(x, mode="decode", positions=positions,
+                                   cache=cache, pos_offset=int(pos))
+            return self._head(x), cache
+
+
+def _step_attrs(batch: Dict[str, torch.Tensor], pos) -> Dict[str, int]:
+    """An entry point's span attributes: the batch, the inputs it embeds
+    (patches and tokens, or frames) and the absolute position."""
+    lead = [t.shape for k, t in batch.items() if k != "labels"]
+    return {"B": lead[0][0], "S": sum(s[1] for s in lead), "pos": int(pos)}
 
 
 def _lookup(emb, tokens):
@@ -355,7 +369,7 @@ def run_layers(cfg: ModelConfig, layers, x, *, mode: str, positions,
 
         def layer(h, li=li, kind=kind, ctx=ctx):
             h, _, a = layer_apply(cfg, kind, layer_is_moe(cfg, li),
-                                  layers[li], h, ctx)
+                                  layers[li], h, ctx, layer=li)
             return h, a
 
         x, a = _remat_wrap(layer, remat)(x)

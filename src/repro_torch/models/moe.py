@@ -59,6 +59,7 @@ from typing import Dict, Mapping, Tuple
 import torch
 import torch.nn.functional as F
 
+from .. import obs
 from ..launch.sharding import (Rules, current_rules, from_local, frozen,
                                is_dtensor, shard_offsets)
 from .config import ModelConfig
@@ -123,7 +124,8 @@ def _fill_capacity_buffers(x, gates, ids, n_experts: int, capacity: int):
 
     Returns the buffers, plus (slot, keep) to invert the scatter at
     combine.  A dropped assignment's slot is the overflow row E·C, as in
-    the JAX package.
+    the JAX package.  While profiling, counts the assignments (T·k), the
+    slots (E·C) and the assignments kept (``obs``).
     """
     t, k = ids.shape
     flat_ids = ids.reshape(-1)                                 # (T*k,)
@@ -135,6 +137,9 @@ def _fill_capacity_buffers(x, gates, ids, n_experts: int, capacity: int):
     pos_sorted = torch.arange(t * k, device=x.device) - seg_start[sorted_ids]
     pos = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
     keep = pos < capacity
+    obs.count("moe.assignments", t * k)
+    obs.count("moe.slots", n_experts * capacity)
+    obs.count("moe.kept", keep)
     slot = torch.where(keep, flat_ids * capacity + pos,
                        torch.full_like(pos, n_experts * capacity))
     src = x.repeat_interleave(k, dim=0)                        # (T*k, D)
@@ -157,8 +162,17 @@ def _combine(expert_out, slot, keep, gates, t: int, k: int):
 
 
 def moe_apply(cfg: ModelConfig, params: Mapping[str, torch.Tensor],
-              x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (out, aux_loss fp32); DTensors for a DTensor x."""
+              x: torch.Tensor, layer: int = -1
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (out, aux_loss fp32); DTensors for a DTensor x.
+    Runs in the span ``repro_torch.moe`` (``layer`` its index), whose
+    children are ``moe.route``, ``moe.dispatch``, ``moe.experts``,
+    ``moe.combine`` and ``moe.shared``."""
+    with obs.span("moe", layer=layer):
+        return _moe(cfg, params, x)
+
+
+def _moe(cfg: ModelConfig, params, x):
     rules = current_rules()
     e = cfg.n_experts
     ep = rules.axis_size("expert") if rules else 1
@@ -179,9 +193,10 @@ def moe_apply(cfg: ModelConfig, params: Mapping[str, torch.Tensor],
         out, aux = _single_shard(cfg, params, x.reshape(b * s, d))
         out = out.reshape(b, s, d)
     if cfg.n_shared_experts:
-        h = F.silu(dense(x, params["ws_gate"], UP_W)) * \
-            dense(x, params["ws_up"], UP_W)
-        out = out + dense(h, params["ws_down"], DOWN_W)
+        with obs.span("moe.shared"):
+            h = F.silu(dense(x, params["ws_gate"], UP_W)) * \
+                dense(x, params["ws_up"], UP_W)
+            out = out + dense(h, params["ws_down"], DOWN_W)
     return out, aux
 
 
@@ -191,10 +206,15 @@ def _single_shard(cfg: ModelConfig, params, xf):
     computes it."""
     t = xf.shape[0]
     e, k = cfg.n_experts, cfg.experts_per_token
-    gates, ids, aux = _route(cfg, params["router"], xf)
+    with obs.span("moe.route"):
+        gates, ids, aux = _route(cfg, params["router"], xf)
     cap = max(k, int(cfg.capacity_factor * t * k / e))
-    buf, slot, keep = _fill_capacity_buffers(xf, gates, ids, e, cap)
-    out = _combine(_expert_ffn(params, buf), slot, keep, gates, t, k)
+    with obs.span("moe.dispatch"):
+        buf, slot, keep = _fill_capacity_buffers(xf, gates, ids, e, cap)
+    with obs.span("moe.experts"):
+        y = _expert_ffn(params, buf)
+    with obs.span("moe.combine"):
+        out = _combine(y, slot, keep, gates, t, k)
     return out, aux.float()
 
 
@@ -338,12 +358,15 @@ def _moe_expert_parallel(cfg: ModelConfig, params, x, rules: Rules,
                            f"block of {xl.shape[0]} rows")
     xr = xl[lo:lo + t_local]
 
-    probs, gates, ids, load = _gate(
-        cfg, _local(params["router"], every, [Partial()] * mesh.ndim), xr)
-    sums = from_local(torch.cat([probs.sum(0), load]), mesh,
-                      [Partial() if i in tok else Replicate() for i in dims],
-                      (2 * e,)).redistribute(mesh, every).to_local()
-    aux = _aux(e, sums[e:], sums[:e] / t_total)
+    with obs.span("moe.route"):
+        probs, gates, ids, load = _gate(
+            cfg, _local(params["router"], every, [Partial()] * mesh.ndim),
+            xr)
+        sums = from_local(torch.cat([probs.sum(0), load]), mesh,
+                          [Partial() if i in tok else Replicate()
+                           for i in dims],
+                          (2 * e,)).redistribute(mesh, every).to_local()
+        aux = _aux(e, sums[e:], sums[:e] / t_total)
 
     w = {n: _local(params[n], [Shard(0) if i == model else Replicate()
                                for i in dims],
@@ -353,9 +376,11 @@ def _moe_expert_parallel(cfg: ModelConfig, params, x, rules: Rules,
         raise ValueError(f"this rank holds {w['w_gate'].shape[0]} experts, "
                          f"not E/ep = {e // ep}: cut them with "
                          f"convert.expert_block")
-    buf, slot, keep = _fill_capacity_buffers(xr, gates, ids, e, cap)
-    out = _combine(dispatch(w, buf, (mesh, model), ep), slot, keep, gates,
-                   t_local, k)
+    with obs.span("moe.dispatch"):
+        buf, slot, keep = _fill_capacity_buffers(xr, gates, ids, e, cap)
+    y = dispatch(w, buf, (mesh, model), ep)
+    with obs.span("moe.combine"):
+        out = _combine(y, slot, keep, gates, t_local, k)
     out, aux = (_grad_scaled(t, 1.0 / replicas) for t in (out, aux))
     out = from_local(out, mesh, [Shard(0) if i in tok else Replicate()
                                  for i in dims], (t_total, d))
@@ -371,15 +396,19 @@ def dispatch(w: Mapping[str, torch.Tensor], buf: torch.Tensor, group,
     expert's output for them: an all-to-all over ``group`` (ep ranks, a
     functional collective that autograd differentiates) to the ranks that
     hold the experts, ``w``'s E/ep experts on the ep·C rows received, and
-    the inverse all-to-all."""
+    the inverse all-to-all: in the spans ``moe.dispatch``,
+    ``moe.experts`` and ``moe.combine``."""
     from torch.distributed import _functional_collectives as funcol
     e, cap, d = buf.shape
     el = e // ep
-    recv = funcol.all_to_all_single_autograd(buf, None, None, group)
-    out = _expert_ffn(w, recv.reshape(ep, el, cap, d).transpose(0, 1)
-                      .reshape(el, ep * cap, d))
+    with obs.span("moe.dispatch"):
+        recv = funcol.all_to_all_single_autograd(buf, None, None, group)
+    with obs.span("moe.experts"):
+        out = _expert_ffn(w, recv.reshape(ep, el, cap, d).transpose(0, 1)
+                          .reshape(el, ep * cap, d))
     send = out.reshape(el, ep, cap, d).transpose(0, 1).reshape(e, cap, d)
-    return funcol.all_to_all_single_autograd(send, None, None, group)
+    with obs.span("moe.combine"):
+        return funcol.all_to_all_single_autograd(send, None, None, group)
 
 
 def _grad_scaled(t: torch.Tensor, scale: float) -> torch.Tensor:
